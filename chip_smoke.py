@@ -3,27 +3,39 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels from `unidistill_torch/csrc`, serves the
-full-width camera detector (`camera_exp().model`, bf16, seeded random
-weights, BatchNorm statistics calibrated on the batch) through `Detector.predict` at batch 4, and holds every kernel of
-that path against its plain PyTorch version on the inputs the path gave it.
+Builds the hand-written kernels from `unidistill_torch/csrc`, serves the two
+full-width detectors through `Detector.predict` at batch 4 (bf16, seeded
+random weights, BatchNorm statistics calibrated on the batch) -- the camera
+detector (`camera_exp().model`) and the LiDAR detector (`lidar_exp().model`,
+from nuScenes-like 10-sweep point clouds) -- and holds every kernel of each
+path against its plain PyTorch version on the inputs the path gave it.
 Phases, each printed on its own line:
 
   device   card name and power limit (nvidia-smi), torch and CUDA versions
   build    one nvcc per source, all started together; build time
-  predict  warm-up request, then timed requests with every launch count set
-           to 0 just before and read just after; latency, frames/s, peak
-           memory, kept boxes, launches (each kernel must launch)
+  predict  camera: warm-up request, then timed requests with every launch
+           count set to 0 just before and read just after; latency,
+           frames/s, peak memory, kept boxes, launches (each kernel must
+           launch)
   K1/K2/K3 kernel vs plain version on the recorded main-path inputs: max
            error against the stated tolerance, kernel / plain / library ms
   heads    one request's head tensors, kernels vs plain versions, in bf16
            and in f32; rois: the ROIs from the same heads, K2/K3 vs plain
-  tiny     a small float32 detector on the card vs the same on the CPU
+  tiny     a small float32 camera detector on the card vs the same on the CPU
+  lidar predict   as predict, for the LiDAR detector; also points, voxels
+           and sites per stage beside the JAX package's fixed-shape caps;
+           K4 must launch 21 times a request, K2 and K3 once
+  K4       each of the 21 recorded sparse convs of one request, K4 vs its
+           plain version: max error, kernel / plain / library / bound ms
+  lidar heads, lidar rois, lidar tiny   as heads, rois and tiny, for LiDAR
 
-Any failed phase raises, so the script exits non-zero. The last two lines
-are the kernel table (JSON) and {"ok": true, "device": {...}}.
-nvcc's register report goes to build/unidistill_torch/nvcc.log.
+Any failed phase raises, so the script exits non-zero. The last three lines
+are the kernel table (JSON; K4's ms, plain_ms, library_ms and bound_ms are
+sums over the 21 convs of one request), the card's name and power limit,
+and {"ok": true, "device": {...}}. nvcc's register report goes to
+build/unidistill_torch/nvcc.log.
 """
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -38,6 +50,7 @@ BATCH = 4
 TIMED_REQUESTS = 3
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 # float operations per rotated-IoU pair, counted from csrc/nms.cu: 8 edge
 # clips x (4 planes x 14 + 13 tail) + 6 for the IoU
 IOU_OPS_PER_PAIR = 8 * (4 * 14 + 13) + 6
@@ -50,10 +63,22 @@ K2_THR_BAND = 1e-5                   # mask bits may differ only where |iou - th
 # which spread through the convolutions after the pool (3e-2 seen on the H100)
 HEAD_REL_TOL_F32 = 1e-3
 HEAD_REL_TOL_BF16 = 1e-1
+# the LiDAR detector runs 21 bf16 sparse convs before the ~20 dense ones;
+# one-ulp flips between K4 and its plain version (both round once, after
+# f32 sums in another order) spread through all of them (9.1e-2 seen on the
+# H100 with these weights and clouds; 2e-5 in f32)
+LIDAR_HEAD_REL_TOL_BF16 = 2.5e-1
 # card vs CPU in f32 with TF32 off, as max |diff| over max |ref|: cuDNN's
 # f32 convolution algorithms round otherwise than the CPU's direct sums, over
 # ~80 convolutions (7.9e-4 seen on the H100; the kernels add ~1e-5)
 TINY_REL_TOL = 5e-3
+# K4 in bf16 against its plain version: both sum in f32 and round once; the
+# other summation order may flip that rounding by one bf16 ulp (at most 2^-7
+# of the value), and near a cancellation the f32 orders differ by ~1e-6 of
+# the terms' scale
+K4_TOL_RTOL = 1e-2
+K4_TOL_ATOL_OF_MAX = 1e-4
+SPARSE_CONVS_PER_REQUEST = 21
 
 
 def log(phase, **kv):
@@ -84,16 +109,18 @@ def cuda_ms(fn, iters=10, warmup=2):
 
 
 class Recorder:
-    """Wraps a module-level function and keeps the arguments of its calls."""
+    """Wraps a module-level function and keeps the arguments and results of
+    its calls."""
 
     def __init__(self, module, name):
         self.module, self.name, self.fn = module, name, getattr(module, name)
-        self.calls = []
+        self.calls, self.results = [], []
 
     def __enter__(self):
         def wrapped(*args, **kwargs):
             self.calls.append((args, kwargs))
-            return self.fn(*args, **kwargs)
+            self.results.append(self.fn(*args, **kwargs))
+            return self.results[-1]
         setattr(self.module, self.name, wrapped)
         return self
 
@@ -107,12 +134,14 @@ class PlainVersions:
 
     def __enter__(self):
         from unidistill_torch.decode import proposals
-        from unidistill_torch.layers import lss
-        from unidistill_torch.ops import bev_pool, nms
+        from unidistill_torch.layers import lidar_encoder, lss
+        from unidistill_torch.ops import bev_pool, nms, sparse_conv
         self.saved = [(lss, "bev_pool_outer", lss.bev_pool_outer),
-                      (proposals, "nms_bev_batched", proposals.nms_bev_batched)]
+                      (proposals, "nms_bev_batched", proposals.nms_bev_batched),
+                      (lidar_encoder, "sparse_conv", lidar_encoder.sparse_conv)]
         lss.bev_pool_outer = bev_pool.bev_pool_outer_plain
         proposals.nms_bev_batched = nms.nms_bev_batched_plain
+        lidar_encoder.sparse_conv = sparse_conv.sparse_conv_plain
         return self
 
     def __exit__(self, *exc):
@@ -125,54 +154,15 @@ def max_err(got, ref):
     return d.max().item(), (d / ref.float().abs().clamp_min(1e-6)).max().item()
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
-        return 2
-    if not (ROOT / "unidistill_torch").is_dir():
-        print("chip_smoke: run it from a checkout of the repository (unidistill_torch/ is missing)",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT))
-    from unidistill_torch.configs.nuscenes import camera_exp, tiny_model
-    from unidistill_torch.decode import proposals
+def serve(phase, det, cfg, batch_dev, recorders, want):
+    """One warm-up request with `recorders` on, then the timed requests,
+    with every launch count set to 0 just before and read just after; each
+    kernel in `want` must have launched exactly that often. Checks the
+    ROIs."""
     from unidistill_torch.kernels import build
-    from unidistill_torch.layers import lss
-    from unidistill_torch.ops import bev_pool, nms
-    from unidistill_torch.serving.predictor import Detector
-    from unidistill_torch.serving.synthetic import (
-        calibrate_batchnorm, nuscenes_batch, random_state_dict, small_batch)
-    from unidistill_torch.training.steps import model_inputs
-
-    t_start = time.time()
-    # stated: f32 convolutions and matmuls run in full f32 (no TF32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda")
-    smi = nvidia_smi_line()
-    log("device", smi=repr(smi), torch=torch.__version__, cuda=torch.version.cuda,
-        count=torch.cuda.device_count(), cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
-        matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
-
-    # ---- build -----------------------------------------------------------
-    t0 = time.time()
-    logs = build.build_all()
-    build_s = time.time() - t0
-    (build.BUILD_DIR / "nvcc.log").write_text("\n".join(f"== {k}\n{v}" for k, v in logs.items()))
-    for name in build.SOURCES:
-        build.library(name)
-    log("build", seconds=f"{build_s:.2f}", built=",".join(sorted(logs)) or "cached")
-
-    # ---- full-width predict ------------------------------------------------
-    cfg = camera_exp().model
-    sd = random_state_dict(cfg, seed=0)
-    det = Detector(cfg, sd, device="cuda")
-    batch = nuscenes_batch(cfg, BATCH, seed=1)
-    batch_dev = {"imgs": torch.from_numpy(batch["imgs"]).to(dev),
-                 "mats": {k: torch.from_numpy(v).to(dev) for k, v in batch["mats"].items()}}
-    calibrate_batchnorm(det.model, model_inputs(batch_dev, cfg, dev))
-    with Recorder(lss, "bev_pool_outer") as pool_rec, \
-            Recorder(proposals, "nms_bev_batched") as nms_rec:
+    with contextlib.ExitStack() as stack:
+        for r in recorders:
+            stack.enter_context(r)
         warm = det.predict(batch_dev)
         torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -186,15 +176,14 @@ def main() -> int:
     launches = dict(build.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     kept = rois["mask"].sum(1).tolist()
-    log("predict", batch=BATCH, requests=TIMED_REQUESTS,
+    log(phase, batch=BATCH, requests=TIMED_REQUESTS,
         latency_ms=[round(x * 1e3, 3) for x in lat],
         frames_per_s=f"{BATCH * len(lat) / sum(lat):.3f}", peak_mem_gib=f"{peak_gib:.3f}",
         kept_boxes=kept, launches=json.dumps(launches, sort_keys=True))
-    main_path = ("bev_pool_fwd", "rotated_iou_mask", "nms_greedy_select")
-    for k in main_path:
-        if launches.get(k, 0) < TIMED_REQUESTS:
+    for k, n in want.items():
+        if launches.get(k, 0) != n:
             raise RuntimeError(f"kernel {k} launched {launches.get(k, 0)} times in "
-                               f"{TIMED_REQUESTS} requests")
+                               f"{TIMED_REQUESTS} requests, expected {n}")
     R = len(cfg.tasks) * cfg.proposal.nms_post_max_size_test
     for k, v in rois.items():
         if tuple(v.shape[:2]) != (BATCH, R):
@@ -204,9 +193,97 @@ def main() -> int:
     if not all(k > 0 for k in kept):
         raise RuntimeError(f"a sample kept no boxes: {kept}")
     if not torch.equal(warm["mask"], rois["mask"]):
-        print("[predict] note: kept masks differ between requests (atomic sum order)")
+        print(f"[{phase}] note: kept masks differ between requests (atomic sum order)")
 
-    table = []
+
+def compare_heads(prefix, det, cfg, inputs, bf16_tol=HEAD_REL_TOL_BF16):
+    """One request's heads with the kernels against the plain versions, in
+    bf16 (the served model) and in f32 (the kernels' own error); then the
+    ROIs decoded from the same heads with K2/K3 and with the plain NMS."""
+    from unidistill_torch.decode import proposals
+    from unidistill_torch.serving.predictor import Detector
+    det32 = Detector(dataclasses.replace(cfg, compute_dtype="float32"), det.model.state_dict(),
+                     device="cuda")
+    heads = {}
+    for label, model, tol in (("bf16", det.model, bf16_tol), ("f32", det32.model, HEAD_REL_TOL_F32)):
+        with torch.no_grad():
+            out_k = model(**inputs)
+            with PlainVersions():
+                out_p = model(**inputs)
+        worst = max(
+            max_err(out_k["multi_head_features"][tid][name], ref_t)[0]
+            / ref_t.abs().max().clamp_min(1e-6).item()
+            for tid, hs in enumerate(out_p["multi_head_features"]) for name, ref_t in hs.items())
+        e_bev, _ = max_err(out_k["model_output"], out_p["model_output"])
+        heads[label] = out_k["multi_head_features"]
+        log(f"{prefix}heads {label}", bev_max_abs_err=f"{e_bev:.3e}",
+            bev_max=f"{out_p['model_output'].abs().max().item():.3e}",
+            head_max_err_over_range=f"{worst:.3e}", tol=tol)
+        if worst > tol:
+            raise RuntimeError(f"{label} head tensors differ by {worst:.3e} of their range (> {tol})")
+    args = (cfg.proposal, cfg.tasks, cfg.point_cloud_range[:2], cfg.voxel_size[:2], cfg.out_size_factor)
+    for label, hs in heads.items():
+        rois_k = proposals.generate_proposals(hs, *args)
+        with PlainVersions():
+            rois_p = proposals.generate_proposals(hs, *args)
+        if not (torch.equal(rois_k["mask"], rois_p["mask"]) and torch.equal(rois_k["labels"], rois_p["labels"])
+                and torch.equal(rois_k["boxes"], rois_p["boxes"])):
+            raise RuntimeError(f"ROIs from the same {label} heads differ between K2/K3 and the plain NMS")
+    log(f"{prefix}rois", from_same_heads="equal", kept_f32=rois_k["mask"].sum(1).tolist())
+
+
+def card_vs_cpu(phase, tcfg, hg, hc):
+    """A small f32 detector's outputs on the card (hg) against the CPU (hc);
+    then decode + NMS on the card (K2, K3) and on the CPU (plain) from the
+    same heads."""
+    from unidistill_torch.decode import proposals
+    rel = lambda g, r: max_err(g.cpu(), r)[0] / r.abs().max().clamp_min(1e-6).item()
+    bev_rel = rel(hg["model_output"], hc["model_output"])
+    head_rel = max(rel(hg["multi_head_features"][tid][name], r)
+                   for tid, heads in enumerate(hc["multi_head_features"]) for name, r in heads.items())
+    if max(bev_rel, head_rel) > TINY_REL_TOL:
+        raise RuntimeError(f"{phase}: card vs CPU differ by {max(bev_rel, head_rel):.3e} of the range")
+    targs = (tcfg.proposal, tcfg.tasks, tcfg.point_cloud_range[:2], tcfg.voxel_size[:2],
+             tcfg.out_size_factor)
+    rg = proposals.generate_proposals(hg["multi_head_features"], *targs)
+    heads_cpu = [{k: t.cpu() for k, t in h.items()} for h in hg["multi_head_features"]]
+    rc = proposals.generate_proposals(heads_cpu, *targs)
+    if not (torch.equal(rg["mask"].cpu(), rc["mask"]) and torch.equal(rg["labels"].cpu(), rc["labels"])):
+        raise RuntimeError(f"{phase}: ROI mask/labels differ between the card and the CPU")
+    torch.testing.assert_close(rg["boxes"].cpu(), rc["boxes"], rtol=1e-5, atol=1e-5)
+    if not all(torch.isfinite(v.float()).all() for v in rg.values()):
+        raise RuntimeError(f"{phase}: non-finite ROIs")
+    if not (rc["mask"].sum(1) > 0).all():
+        raise RuntimeError(f"{phase}: a sample kept no boxes")
+    log(phase, bev_err_over_range=f"{bev_rel:.3e}", head_err_over_range=f"{head_rel:.3e}",
+        tol=TINY_REL_TOL, rois_from_same_heads="equal", kept=rc["mask"].sum(1).tolist())
+
+
+def camera_phases(dev, table) -> None:
+    """The camera detector's path: predict, K1-K3, heads, rois, tiny."""
+    from unidistill_torch.configs.nuscenes import camera_exp, tiny_model
+    from unidistill_torch.decode import proposals
+    from unidistill_torch.kernels import build
+    from unidistill_torch.layers import lss
+    from unidistill_torch.ops import bev_pool, nms
+    from unidistill_torch.serving.predictor import Detector
+    from unidistill_torch.serving.synthetic import (
+        calibrate_batchnorm, nuscenes_batch, random_state_dict, small_batch)
+    from unidistill_torch.training.steps import model_inputs
+
+    # ---- full-width predict ------------------------------------------------
+    cfg = camera_exp().model
+    sd = random_state_dict(cfg, seed=0)
+    det = Detector(cfg, sd, device="cuda")
+    batch = nuscenes_batch(cfg, BATCH, seed=1)
+    batch_dev = {"imgs": torch.from_numpy(batch["imgs"]).to(dev),
+                 "mats": {k: torch.from_numpy(v).to(dev) for k, v in batch["mats"].items()}}
+    calibrate_batchnorm(det.model, model_inputs(batch_dev, cfg, dev))
+    pool_rec, nms_rec = Recorder(lss, "bev_pool_outer"), Recorder(proposals, "nms_bev_batched")
+    serve("predict", det, cfg, batch_dev, [pool_rec, nms_rec],
+          dict(bev_pool_fwd=TIMED_REQUESTS, rotated_iou_mask=TIMED_REQUESTS,
+               nms_greedy_select=TIMED_REQUESTS))
+    launches = dict(build.LAUNCHES)
 
     # ---- K1 ------------------------------------------------------------------
     (geom_idx, depth, context, voxel_num), _ = pool_rec.calls[0]
@@ -286,39 +363,9 @@ def main() -> int:
                       bound_by="bytes", library_ms=None))
 
     # ---- heads and ROIs: kernels vs plain versions on the card ---------------
-    # The same weights in bf16 (the served model) and in f32: in bf16 the
-    # pool's f32 round-off flips bf16 roundings, and the flips spread through
-    # the ~20 bf16 convolutions after it; f32 shows the kernels' own error.
-    det32 = Detector(dataclasses.replace(cfg, compute_dtype="float32"), det.model.state_dict(),
-                     device="cuda")
-    inputs = model_inputs(batch_dev, cfg, dev)
-    heads = {}
-    for label, model, tol in (("bf16", det.model, HEAD_REL_TOL_BF16), ("f32", det32.model, HEAD_REL_TOL_F32)):
-        with torch.no_grad():
-            out_k = model(**inputs)
-            with PlainVersions():
-                out_p = model(**inputs)
-        worst = max(
-            max_err(out_k["multi_head_features"][tid][name], ref_t)[0]
-            / ref_t.abs().max().clamp_min(1e-6).item()
-            for tid, hs in enumerate(out_p["multi_head_features"]) for name, ref_t in hs.items())
-        e_bev, _ = max_err(out_k["model_output"], out_p["model_output"])
-        heads[label] = out_k["multi_head_features"]
-        log(f"heads {label}", bev_max_abs_err=f"{e_bev:.3e}",
-            bev_max=f"{out_p['model_output'].abs().max().item():.3e}",
-            head_max_err_over_range=f"{worst:.3e}", tol=tol)
-        if worst > tol:
-            raise RuntimeError(f"{label} head tensors differ by {worst:.3e} of their range (> {tol})")
-    args = (cfg.proposal, cfg.tasks, cfg.point_cloud_range[:2], cfg.voxel_size[:2], cfg.out_size_factor)
-    for label, hs in heads.items():
-        rois_k = proposals.generate_proposals(hs, *args)
-        with PlainVersions():
-            rois_p = proposals.generate_proposals(hs, *args)
-        if not (torch.equal(rois_k["mask"], rois_p["mask"]) and torch.equal(rois_k["labels"], rois_p["labels"])
-                and torch.equal(rois_k["boxes"], rois_p["boxes"])):
-            raise RuntimeError(f"ROIs from the same {label} heads differ between K2/K3 and the plain NMS")
-    log("rois", from_same_heads="equal", kept_f32=rois_k["mask"].sum(1).tolist())
-    del det32
+    # in bf16 the pool's f32 round-off flips bf16 roundings, and the flips
+    # spread through the ~20 bf16 convolutions after it
+    compare_heads("", det, cfg, model_inputs(batch_dev, cfg, dev))
 
     # ---- small input: the card against the CPU -----------------------------
     tcfg = dataclasses.replace(tiny_model(with_lidar=False), compute_dtype="float32")
@@ -333,27 +380,152 @@ def main() -> int:
     moved = int((rec_g.calls[0][0][0].cpu() != rec_c.calls[0][0][0]).any(-1).sum().item())
     if moved:
         raise RuntimeError(f"tiny detector: {moved} frustum points fall in other cells on the card")
-    rel = lambda g, r: max_err(g.cpu(), r)[0] / r.abs().max().clamp_min(1e-6).item()
-    bev_rel = rel(hg["model_output"], hc["model_output"])
-    head_rel = max(rel(hg["multi_head_features"][tid][name], r)
-                   for tid, heads in enumerate(hc["multi_head_features"]) for name, r in heads.items())
-    if max(bev_rel, head_rel) > TINY_REL_TOL:
-        raise RuntimeError(f"tiny detector: card vs CPU differ by {max(bev_rel, head_rel):.3e} of the range")
-    # decode + NMS on the card (K2, K3) and on the CPU (plain) from the same heads
-    targs = (tcfg.proposal, tcfg.tasks, tcfg.point_cloud_range[:2], tcfg.voxel_size[:2],
-             tcfg.out_size_factor)
-    rg = proposals.generate_proposals(hg["multi_head_features"], *targs)
-    heads_cpu = [{k: t.cpu() for k, t in h.items()} for h in hg["multi_head_features"]]
-    rc = proposals.generate_proposals(heads_cpu, *targs)
-    if not (torch.equal(rg["mask"].cpu(), rc["mask"]) and torch.equal(rg["labels"].cpu(), rc["labels"])):
-        raise RuntimeError("tiny detector: ROI mask/labels differ between the card and the CPU")
-    torch.testing.assert_close(rg["boxes"].cpu(), rc["boxes"], rtol=1e-5, atol=1e-5)
-    if not all(torch.isfinite(v.float()).all() for v in rg.values()):
-        raise RuntimeError("tiny detector: non-finite ROIs")
-    if not (rc["mask"].sum(1) > 0).all():
-        raise RuntimeError("tiny detector: a sample kept no boxes")
-    log("tiny", bev_err_over_range=f"{bev_rel:.3e}", head_err_over_range=f"{head_rel:.3e}",
-        tol=TINY_REL_TOL, rois_from_same_heads="equal", kept=rc["mask"].sum(1).tolist())
+    card_vs_cpu("tiny", tcfg, hg, hc)
+
+
+def lidar_phases(dev, table) -> None:
+    """The LiDAR detector's path: predict, sites per stage, K4, heads, rois,
+    tiny."""
+    from unidistill_torch.configs.nuscenes import lidar_exp, tiny_model
+    from unidistill_torch.kernels import build
+    from unidistill_torch.layers import lidar_encoder
+    from unidistill_torch.ops import sparse_conv
+    from unidistill_torch.serving.predictor import Detector
+    from unidistill_torch.serving.synthetic import calibrate_batchnorm, lidar_batch, random_state_dict
+    from unidistill_torch.training.steps import model_inputs
+
+    # ---- full-width predict from raw points --------------------------------
+    cfg = lidar_exp().model
+    det = Detector(cfg, random_state_dict(cfg, seed=10), device="cuda")
+    t0 = time.time()
+    batch = lidar_batch(cfg, BATCH, seed=11)
+    cloud_s = time.time() - t0
+    batch_dev = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    calibrate_batchnorm(det.model, model_inputs(batch_dev, cfg, dev))
+    conv_rec = Recorder(lidar_encoder, "sparse_conv")
+    rb_rec = Recorder(lidar_encoder, "build_rulebooks")
+    log("lidar cloud", points=batch["points_mask"].sum(1).tolist(), seconds=f"{cloud_s:.2f}")
+    serve("lidar predict", det, cfg, batch_dev, [conv_rec, rb_rec],
+          dict(sparse_conv_fwd=SPARSE_CONVS_PER_REQUEST * TIMED_REQUESTS,
+               rotated_iou_mask=TIMED_REQUESTS, nms_greedy_select=TIMED_REQUESTS))
+    launches = dict(build.LAUNCHES)
+
+    # ---- voxels and sites per stage, beside the JAX package's caps -----------
+    rb = rb_rec.results[0]
+    lc = cfg.lidar_encoder
+    per_sample = [torch.bincount(st.coords[:, 0], minlength=BATCH).tolist() for st in rb.sites]
+    b, z, y, x = rb.sites[0].coords.unbind(1)
+    _, H0, W0 = rb.sites[0].spatial_shape
+    slots = torch.unique(((b * H0 + y) * W0 + x) * 16 + z // 4)  # (b, column, z // 4)
+    s0_slots = torch.bincount(slots // (16 * H0 * W0), minlength=BATCH).tolist()
+    rows = [("s0_voxels", per_sample[0], cfg.caps.max_voxels_eval), ("s0_slots", s0_slots, lc.s0_slot_cap)]
+    rows += [(f"s{i}_sites", n, cap) for i, n, cap in zip((2, 3, 4, 5), per_sample[1:], lc.stage_voxel_caps)]
+    binds = [name for name, n, cap in rows if max(n) > cap]
+    log("lidar sites", **{f"{name}": f"{n}(jax_cap={cap})" for name, n, cap in rows},
+        jax_caps_that_would_bind=",".join(binds) or "none")
+
+    # ---- K4: every sparse conv of one request, kernel vs plain ---------------
+    if len(conv_rec.calls) != SPARSE_CONVS_PER_REQUEST:
+        raise RuntimeError(f"{len(conv_rec.calls)} sparse convs in one request")
+    names = ["conv_input"]
+    for (down, *_), (stage, _) in zip(lidar_encoder.DOWN_CONVS, lidar_encoder.RES_STAGES):
+        names += [f"{stage}{ab}.conv{c}" for ab in "ab" for c in (1, 2)] + [down]
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
+    worst = 0.0
+    for name, ((f, nbr, w, b), _) in zip(names, conv_rec.calls):
+        got = sparse_conv.sparse_conv_cuda(f, nbr, w, b)
+        ref = sparse_conv.sparse_conv_plain(f, nbr, w, b)
+        torch.cuda.synchronize()
+        abs_e, _ = max_err(got, ref)
+        torch.testing.assert_close(got.float(), ref.float(), rtol=K4_TOL_RTOL,
+                                   atol=K4_TOL_ATOL_OF_MAX * ref.float().abs().max().item())
+        worst = max(worst, abs_e)
+        ms = cuda_ms(lambda: sparse_conv.sparse_conv_cuda(f, nbr, w, b))
+        plain_ms = cuda_ms(lambda: sparse_conv.sparse_conv_plain(f, nbr, w, b), iters=3)
+        K, cin, cout = w.shape
+        fz = torch.cat([f, f.new_zeros(1, cin)])
+        im2col = fz[torch.where(nbr < 0, f.shape[0], nbr).long()].reshape(nbr.shape[0], K * cin)
+        w2 = w.reshape(K * cin, cout)
+        library_ms = cuda_ms(lambda: torch.mm(im2col, w2), iters=5)
+        del im2col, fz
+        pairs = int((nbr >= 0).sum().item())
+        nbytes = (f.numel() + w.numel() + nbr.shape[0] * cout) * f.element_size() + nbr.numel() * 4
+        if b is not None:
+            nbytes += b.numel() * b.element_size()
+        peak = BF16_OPS_PER_S if f.dtype == torch.bfloat16 else F32_OPS_PER_S
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, 2 * pairs * cin * cout / peak * 1e3
+        bound = max(bytes_ms, ops_ms)
+        log(f"K4 sparse_conv_fwd {name}", n_in=f.shape[0], n_out=nbr.shape[0], K=K, cin=cin, cout=cout,
+            pairs=pairs, max_abs_err=f"{abs_e:.3e}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            library_ms=f"{library_ms:.4f}", bound_ms=f"{bound:.4f}",
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms), ("bound_ms", bound),
+                     ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+            tot[k] += v
+    bound_by = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
+    log("K4 sparse_conv_fwd", convs=len(names), dtype=str(conv_rec.calls[0][0][0].dtype),
+        max_abs_err=f"{worst:.3e}", tol=f"rtol={K4_TOL_RTOL},atol={K4_TOL_ATOL_OF_MAX}*max|ref|",
+        **{f"{k}_per_request": f"{v:.4f}" for k, v in tot.items()}, bound_by=bound_by)
+    table.append(dict(name="sparse_conv_fwd", route="cuda", source="unidistill_torch/csrc/sparse_conv.cu",
+                      replaces="unidistill_tpu/ops/sparse_conv_pallas.py:128",
+                      launches=launches["sparse_conv_fwd"], max_abs_err=worst, ms=tot["ms"],
+                      plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"], bound_by=bound_by,
+                      library_ms=tot["library_ms"]))
+    del conv_rec, rb_rec, rb
+
+    # ---- heads and ROIs: kernels vs plain versions on the card ---------------
+    compare_heads("lidar ", det, cfg, model_inputs(batch_dev, cfg, dev), LIDAR_HEAD_REL_TOL_BF16)
+    del det
+
+    # ---- small input: the card against the CPU -----------------------------
+    tcfg = dataclasses.replace(tiny_model(with_camera=False), compute_dtype="float32")
+    tbatch = lidar_batch(tcfg, 2, seed=13)
+    det_cpu = Detector(tcfg, random_state_dict(tcfg, seed=12), device="cpu")
+    calibrate_batchnorm(det_cpu.model, model_inputs(tbatch, tcfg, "cpu"))
+    det_gpu = Detector(tcfg, det_cpu.model.state_dict(), device="cuda")
+    in_g, in_c = model_inputs(tbatch, tcfg, dev), model_inputs(tbatch, tcfg, "cpu")
+    if not torch.equal(in_g["voxel_coords"].cpu(), in_c["voxel_coords"]):
+        raise RuntimeError("lidar tiny: the card puts points in other voxels than the CPU")
+    torch.testing.assert_close(in_g["voxel_feats"].cpu(), in_c["voxel_feats"], rtol=1e-6, atol=1e-6)
+    with torch.no_grad():
+        hg, hc = det_gpu.model(**in_g), det_cpu.model(**in_c)
+    card_vs_cpu("lidar tiny", tcfg, hg, hc)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    if not (ROOT / "unidistill_torch").is_dir():
+        print("chip_smoke: run it from a checkout of the repository (unidistill_torch/ is missing)",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from unidistill_torch.kernels import build
+
+    t_start = time.time()
+    # stated: f32 convolutions and matmuls run in full f32 (no TF32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = nvidia_smi_line()
+    log("device", smi=repr(smi), torch=torch.__version__, cuda=torch.version.cuda,
+        count=torch.cuda.device_count(), cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+        matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+
+    # ---- build -----------------------------------------------------------
+    t0 = time.time()
+    logs = build.build_all()
+    build_s = time.time() - t0
+    (build.BUILD_DIR / "nvcc.log").write_text("\n".join(f"== {k}\n{v}" for k, v in logs.items()))
+    for name in build.SOURCES:
+        build.library(name)
+    log("build", seconds=f"{build_s:.2f}", built=",".join(sorted(logs)) or "cached")
+
+    table = []
+    camera_phases(dev, table)
+    torch.cuda.empty_cache()
+    lidar_phases(dev, table)
 
     log("done", seconds=f"{time.time() - t_start:.1f}")
     print(json.dumps({"kernels": table}))

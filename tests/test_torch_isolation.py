@@ -32,7 +32,7 @@ def test_importing_the_port_pulls_in_no_jax():
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 14, res.stdout
+    assert n_modules >= 17, res.stdout
 
 
 def _sources():
@@ -54,7 +54,11 @@ def test_no_source_imports_jax(name):
     lambda m: m.tiny_model(with_lidar=False),
     lambda m: m.tiny_model(),
     lambda m: m.ModelConfig(),
-], ids=["camera_exp", "camera_model", "tiny_camera", "tiny", "default_model"])
+    lambda m: m.lidar_exp(),
+    lambda m: m.lidar_exp().model,
+    lambda m: m.tiny_model(with_camera=False),
+], ids=["camera_exp", "camera_model", "tiny_camera", "tiny", "default_model", "lidar_exp",
+        "lidar_model", "tiny_lidar"])
 def test_config_copy_matches_jax(make):
     ours, ref = make(pcfg), make(jcfg)
     assert dataclasses.asdict(ours) == dataclasses.asdict(ref)

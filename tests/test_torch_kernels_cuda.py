@@ -8,13 +8,16 @@ JAX, so it also runs where only PyTorch is installed:
 Tolerances: K1 rtol/atol 1e-5 (float32 atomics sum in another order); K2
 float mode rtol 1e-4, atol 1e-5 (same float math, libm cos/sin may differ
 by an ulp); K2 mask bits and K3 keep sets exactly (no IoU within 1e-4 of
-the threshold in these inputs).
+the threshold in these inputs); K4 in float32 rtol/atol 1e-4 (up to 27·128
+products summed in another order), in bfloat16 rtol 1e-2 (kernel and plain
+version both sum in f32 and round once; the other order may flip that
+rounding by one bf16 ulp, at most 2^-7 of the value).
 """
 import numpy as np
 import pytest
 import torch
 
-from unidistill_torch.ops import bev_pool, nms
+from unidistill_torch.ops import bev_pool, nms, sparse_conv
 
 THR = 0.2
 
@@ -95,3 +98,52 @@ def test_nms_kernels_match_plain(cuda_device):
     bidx, bmask = nms.nms_bev_batched(boxes, valid, THR, 40)
     pidx, pmask = nms.nms_bev_batched_plain(boxes, valid, THR, 40)
     assert torch.equal(bidx, pidx) and torch.equal(bmask, pmask)
+
+
+def _sparse_inputs(device, dtype, n_in, n_out, K, cin, cout, seed, missing=0.6):
+    g = torch.Generator().manual_seed(seed)
+    feats = torch.randn(n_in, cin, generator=g)
+    nbr = torch.randint(0, n_in, (n_out, K), generator=g, dtype=torch.int32)
+    nbr[torch.rand(n_out, K, generator=g) < missing] = -1
+    nbr[64:128] = -1                     # a tile with no neighbour at all
+    nbr[128:192, : K // 2] = -1          # a tile whose first taps are all missing
+    w = torch.randn(K, cin, cout, generator=g) * (1.0 / (K * cin)) ** 0.5
+    bias = torch.randn(cout, generator=g)
+    return (feats.to(device, dtype), nbr.to(device), w.to(device, dtype), bias.to(device, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("K,cin,cout", [(27, 5, 16), (27, 16, 16), (27, 16, 32), (27, 48, 64),
+                                        (27, 128, 128), (3, 128, 128)])
+def test_sparse_conv_kernel_matches_plain(cuda_device, dtype, K, cin, cout):
+    from unidistill_torch.kernels import build
+    feats, nbr, w, bias = _sparse_inputs(cuda_device, dtype, 3001, 2777, K, cin, cout, seed=cin + K)
+    before = build.LAUNCHES["sparse_conv_fwd"]
+    got = sparse_conv.sparse_conv(feats, nbr, w, bias)
+    assert build.LAUNCHES["sparse_conv_fwd"] == before + 1
+    ref = sparse_conv.sparse_conv_plain(feats, nbr, w, bias)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (2777, cout)
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-5)
+    torch.testing.assert_close(got.float(), ref.float(), **tol)
+    assert torch.equal(got[64:128].float(), bias.float().expand(64, cout).to(dtype).float())
+
+
+@pytest.mark.cuda
+def test_sparse_conv_kernel_on_rulebooks(cuda_device):
+    """A SubM map from the rulebook code, without bias, in float32."""
+    g = torch.Generator().manual_seed(3)
+    shape = (9, 30, 30)
+    D, H, W = shape
+    keys = torch.unique(torch.randint(0, D * H * W, (3000,), generator=g))
+    col = keys // D
+    coords = torch.stack([keys % D, col // W, col % W], 1).to(torch.int32)
+    feats = torch.randn(1, len(keys), 16, generator=g)
+    st = sparse_conv.from_voxels(feats, coords[None], shape)
+    st = sparse_conv.SparseTensor(st.features.to(cuda_device), st.coords.to(cuda_device),
+                                  st.keys.to(cuda_device), shape, 1)
+    nbr = sparse_conv.subm_rules(st)
+    w = (torch.randn(27, 16, 32, generator=g) * 0.1).to(cuda_device)
+    got = sparse_conv.sparse_conv(st.features, nbr, w)
+    torch.testing.assert_close(got, sparse_conv.sparse_conv_plain(st.features, nbr, w), rtol=1e-4, atol=1e-4)

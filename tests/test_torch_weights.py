@@ -7,7 +7,8 @@ go through `state_dict_from_jax`, and the port's module loads them with
 float32 on the CPU at rtol 1e-4, atol 1e-4 (one module, convolutions summed
 in another order). The transposed-conv layouts (SECONDFPN k = s = 1, 2 and
 the BEV backbone's k = s = 2) and the head's grouped out conv are covered
-here.
+here, and the LiDAR leaves: sparse kernels [K, Cin, Cout] keep their layout
+(`conv_out` has K = 3) and the MaskedBatchNorms' statistics carry over.
 """
 import dataclasses
 
@@ -21,23 +22,27 @@ import jax.numpy as jnp
 from unidistill_tpu.configs.nuscenes import tiny_model as jax_tiny_model
 from unidistill_tpu.layers.bev_backbone import BaseBEVBackbone as JaxBEV
 from unidistill_tpu.layers.center_head import CenterHead as JaxHead
+from unidistill_tpu.layers.lidar_encoder import SparseBasicBlockDense as JaxDenseBlock
 from unidistill_tpu.layers.resnet import ResNet as JaxResNet
 from unidistill_tpu.layers.second_fpn import SECONDFPN as JaxFPN
 from unidistill_tpu.models.bevfusion import BEVFusionCenterHead as JaxModel
-from unidistill_tpu.training.torch_import import convert_state_dict
+from unidistill_tpu.training.torch_import import convert_state_dict, spconv3d
 
 from unidistill_torch.configs.nuscenes import tiny_model
 from unidistill_torch.layers.bev_backbone import BaseBEVBackbone
 from unidistill_torch.layers.center_head import CenterHead
+from unidistill_torch.layers.lidar_encoder import SparseBasicBlock
 from unidistill_torch.layers.resnet import ResNet
 from unidistill_torch.layers.second_fpn import SECONDFPN
 from unidistill_torch.models.bevfusion import BEVFusionCenterHead
+from unidistill_torch.ops.sparse_conv import from_voxels, subm_rules
 from unidistill_torch.training.jax_weights import state_dict_from_jax
 
 from tests.test_torch_import_full import build_reference_state_dict
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 PCFG = dataclasses.replace(tiny_model(with_lidar=False), compute_dtype="float32")
+LCFG = dataclasses.replace(tiny_model(with_camera=False), compute_dtype="float32")
 
 
 def randomize(tree, rng, stats=False):
@@ -59,13 +64,13 @@ def randomize(tree, rng, stats=False):
     return jax.tree_util.tree_map_with_path(leaf, tree)
 
 
-def port_module(module, params, stats, prefix):
+def port_module(module, params, stats, prefix, cfg=PCFG):
     """Load JAX trees, nested under the model path `prefix`, into `module`."""
     def nest(tree):
         for p in reversed(prefix.split(".")):
             tree = {p: tree}
         return tree
-    sd = state_dict_from_jax(nest(params), nest(stats), PCFG)
+    sd = state_dict_from_jax(nest(params), nest(stats), cfg)
     sd = {k[len(prefix) + 1:]: v for k, v in sd.items()}
     module.load_state_dict(sd, strict=True)
     return module.eval()
@@ -179,3 +184,77 @@ def test_reference_checkpoint_round_trip():
 def test_unknown_leaf_raises():
     with pytest.raises(KeyError):
         state_dict_from_jax({"det_head": {"shared_conv": {"weird": np.zeros(3)}}}, {}, PCFG)
+
+
+def test_sparse_basic_block_matches_jax():
+    """SparseBasicBlock (bias before BN kept) against the JAX dense-grid
+    block, whose parameters are those of the sparse one: with zeros at
+    inactive sites and masked outputs it is the submanifold block exactly."""
+    B, shape, C = 2, (5, 6, 7), 16
+    rng = np.random.RandomState(7)
+    occ = rng.rand(B, *shape) < 0.35
+    x = np.where(occ[..., None], rng.randn(B, *shape, C), 0).astype(np.float32)
+    jm = JaxDenseBlock(C, dtype=jnp.float32)
+    p, s = init(jm, jnp.asarray(x), jnp.asarray(occ))
+    ref = np.asarray(jm.apply({"params": p, "batch_stats": s}, jnp.asarray(x), jnp.asarray(occ),
+                              train=False))
+    # the same voxels as [B, V, ·] slots in key order (z fastest), -1 padded
+    V = int(occ.reshape(B, -1).sum(1).max())
+    coords = np.full((B, V, 3), -1, np.int32)
+    feats = np.zeros((B, V, C), np.float32)
+    for b in range(B):
+        zyx = np.argwhere(occ[b])
+        zyx = zyx[np.lexsort((zyx[:, 0], zyx[:, 2], zyx[:, 1]))]
+        coords[b, : len(zyx)] = zyx
+        feats[b, : len(zyx)] = x[b][tuple(zyx.T)]
+    st = from_voxels(torch.from_numpy(feats), torch.from_numpy(coords), shape)
+    block = port_module(SparseBasicBlock(C), p, s, "lidar_encoder.backbone_3d.res1a", LCFG)
+    with torch.no_grad():
+        got = block(st.features, subm_rules(st))
+    b, z, y, xx = st.coords.numpy().T
+    np.testing.assert_allclose(got.numpy(), ref[b, z, y, xx], **TOL)
+    assert np.abs(ref).max() > 1.0
+
+
+def _jax_lidar_trees():
+    jcfg = dataclasses.replace(jax_tiny_model(with_camera=False), compute_dtype="float32")
+    V = jcfg.caps.max_voxels_eval
+    coords = jnp.full((1, V, 3), -1, jnp.int32).at[0, 0].set(jnp.asarray([20, 40, 40]))
+    shapes = jax.eval_shape(lambda: JaxModel(jcfg).init(
+        jax.random.PRNGKey(0), voxel_feats=jnp.zeros((1, V, 5)), voxel_coords=coords, train=False))
+    return shapes["params"], shapes["batch_stats"]
+
+
+def test_lidar_state_dict_covers_the_model_exactly():
+    params, stats = _jax_lidar_trees()
+    rng = np.random.RandomState(8)
+    params, stats = randomize(params, rng), randomize(stats, rng)
+    sd = state_dict_from_jax(params, stats, LCFG)
+    model = BEVFusionCenterHead(LCFG)
+    assert set(sd) == set(model.state_dict())
+    model.load_state_dict(sd, strict=True)
+    enc = params["lidar_encoder"]["backbone_3d"]
+    kernels = {k: v["kernel"] for k, v in enc.items() if "kernel" in v}
+    assert set(kernels) == {"conv_input", "down2", "down3", "down4", "conv_out"}
+    for name, k in kernels.items():  # kept as [K, Cin, Cout]
+        np.testing.assert_array_equal(sd[f"lidar_encoder.backbone_3d.{name}.weight"].numpy(), k)
+    assert tuple(sd["lidar_encoder.backbone_3d.conv_out.weight"].shape) == (3, 128, 128)
+    np.testing.assert_array_equal(sd["lidar_encoder.backbone_3d.res2b.conv1.weight"].numpy(),
+                                  enc["res2b"]["conv1"]["kernel"])
+    bstats = stats["lidar_encoder"]["backbone_3d"]
+    np.testing.assert_array_equal(sd["lidar_encoder.backbone_3d.res4a.bn2.running_var"].numpy(),
+                                  bstats["res4a"]["bn2"]["var"])
+    np.testing.assert_array_equal(sd["lidar_encoder.backbone_3d.bn_out.running_mean"].numpy(),
+                                  bstats["bn_out"]["mean"])
+
+
+def test_lidar_reference_checkpoint_round_trip():
+    """reference-named (spconv) state dict -> JAX trees -> port state dict."""
+    ref_sd = build_reference_state_dict(jax_tiny_model(), rng=np.random.RandomState(9))
+    jcfg = dataclasses.replace(jax_tiny_model(with_camera=False), compute_dtype="float32")
+    params, stats = convert_state_dict(ref_sd, jcfg)
+    sd = state_dict_from_jax(params, stats, LCFG)
+    BEVFusionCenterHead(LCFG).load_state_dict(sd, strict=True)
+    w = ref_sd["lidar_encoder.backbone_3d.conv_input.0.weight"]
+    np.testing.assert_array_equal(sd["lidar_encoder.backbone_3d.conv_input.weight"].numpy(),
+                                  spconv3d(w, 5, 16))

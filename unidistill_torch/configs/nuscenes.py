@@ -50,8 +50,10 @@ class ShapeCaps:
 
 @dataclass(frozen=True)
 class LidarEncoderConfig:
-    """Carried so that ModelConfig matches the JAX one; the LiDAR encoder is
-    not ported in this slice."""
+    """The sparse encoder's grid and input features. The caps,
+    `encoder_impl` and `no_remat_stages` are fixed-shape and memory knobs of
+    the JAX package, kept so that the copy matches it: the port's model keeps
+    every active site and reads none of them."""
 
     point_cloud_range: Tuple[float, ...] = POINT_CLOUD_RANGE
     voxel_size: Tuple[float, ...] = VOXEL_SIZE
@@ -236,6 +238,19 @@ class ExpConfig:
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     distill: Optional[object] = None
+
+
+def lidar_exp() -> ExpConfig:
+    """The LiDAR-only CenterHead experiment (no camera encoder)."""
+    return ExpConfig(
+        exp_name="BEVFusion_nuscenes_centerhead_lidar_exp",
+        model=ModelConfig(
+            with_camera=False,
+            lidar_encoder=LidarEncoderConfig(
+                no_remat_stages=("res1", "res2", "res3", "res4"),
+            ),
+        ),
+    )
 
 
 def camera_exp() -> ExpConfig:

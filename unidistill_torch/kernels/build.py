@@ -27,7 +27,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "unidistill_torch"
-SOURCES = ("bev_pool", "nms")
+SOURCES = ("bev_pool", "nms", "sparse_conv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -53,6 +53,10 @@ SIGNATURES = {
         "rotated_iou_mask": (_P, _P, _P, _I, _I, _F, _P),
         # mask, valid, keep_idx, keep_mask, L, C, post_max, stream
         "nms_greedy_select": (_P, _P, _P, _P, _I, _I, _I, _P),
+    },
+    "sparse_conv": {
+        # feats, nbr, w, bias (or None), out, n_in, n_out, K, cin, cout, dtype, stream
+        "sparse_conv_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     },
 }
 

@@ -1,18 +1,21 @@
-"""BEVFusion-CenterHead detector, camera subset; counterpart of the JAX
+"""BEVFusion-CenterHead detector with one modality; counterpart of the JAX
 `models/bevfusion.py`.
 
-camera_encoder (LSS -> [B, 256, ny, nx]) -> bev_encoder (SECOND 2D backbone
--> [B, 512, ny, nx]) -> det_head (CenterHead -> per-task dicts of NCHW maps).
-The LiDAR encoder and the fusion encoder are not ported yet.
+lidar_encoder (sparse voxel encoder -> [B, 256, ny, nx]) or camera_encoder
+(LSS -> [B, 256, ny, nx]) -> bev_encoder (SECOND 2D backbone ->
+[B, 512, ny, nx]) -> det_head (CenterHead -> per-task dicts of NCHW maps).
+The LiDAR-only and the camera-only detectors run; fusion (both modalities
+and the fusion encoder) is not ported yet and raises.
 
-Convolution weights are held in `cfg.compute_dtype`; BatchNorm, the head's
-output bias, `awl_params` and every output stay float32, as in the JAX model.
+Convolution weights, the sparse ones included, are held in
+`cfg.compute_dtype`; BatchNorm, the head's output bias, `awl_params` and
+every output stay float32, as in the JAX model.
 The JAX model's `nn.remat` wrappers save TPU memory in training and change
 no math, so they have no counterpart here.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -20,6 +23,7 @@ from torch import nn
 from unidistill_torch.configs.nuscenes import ModelConfig
 from unidistill_torch.layers.bev_backbone import BaseBEVBackbone
 from unidistill_torch.layers.center_head import CenterHead
+from unidistill_torch.layers.lidar_encoder import LidarEncoder, SubMConv
 from unidistill_torch.layers.lss import LSSFPN
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -28,15 +32,20 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 class BEVFusionCenterHead(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.with_lidar:
-            raise NotImplementedError("the LiDAR encoder and fusion are not ported yet")
-        if not cfg.with_camera:
+        if cfg.with_lidar and cfg.with_camera:
+            raise NotImplementedError("fusion (LiDAR + camera) is not ported yet")
+        if not (cfg.with_lidar or cfg.with_camera):
             raise ValueError("the model needs at least one modality")
         self.cfg = cfg
-        self.camera_encoder = LSSFPN(cfg.camera_encoder)
         be = cfg.bev_encoder
+        if cfg.with_lidar:
+            self.lidar_encoder = LidarEncoder(cfg.lidar_encoder)
+            bev_in = be.num_bev_features
+        else:
+            self.camera_encoder = LSSFPN(cfg.camera_encoder)
+            bev_in = cfg.camera_encoder.output_channels
         self.bev_encoder = BaseBEVBackbone(
-            cfg.camera_encoder.output_channels, be.layer_nums, be.layer_strides,
+            bev_in, be.layer_nums, be.layer_strides,
             be.num_filters, be.upsample_strides, be.num_upsample_filters,
         )
         self.det_head = CenterHead(
@@ -46,11 +55,17 @@ class BEVFusionCenterHead(nn.Module):
         self.awl_params = nn.Parameter(torch.ones(len(cfg.det_head.code_weights) + 2))
         dtype = DTYPES[cfg.compute_dtype]
         for m in self.modules():
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, SubMConv)):
                 m.to(dtype)
 
-    def forward(self, imgs: torch.Tensor, mats: Dict[str, torch.Tensor]) -> Dict:
-        model_output = self.camera_encoder(imgs, mats)
+    def forward(self, voxel_feats: Optional[torch.Tensor] = None,
+                voxel_coords: Optional[torch.Tensor] = None,
+                imgs: Optional[torch.Tensor] = None,
+                mats: Optional[Dict[str, torch.Tensor]] = None) -> Dict:
+        if self.cfg.with_lidar:
+            model_output = self.lidar_encoder(voxel_feats, voxel_coords)
+        else:
+            model_output = self.camera_encoder(imgs, mats)
         bev, _pyramid = self.bev_encoder(model_output)
         preds = self.det_head(bev)
         return dict(

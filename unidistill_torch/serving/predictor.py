@@ -1,11 +1,18 @@
 """Serving entry point: `Detector(cfg, state_dict).predict(batch)`.
 
 The contract of the JAX package's `serving/export.py` (`load_detector(path)
-.predict(batch)`), camera part: the batch holds
-  imgs       [B, N_cam, H, W, 3] float32 (normalised)
-  mats       sensor2ego_mats / intrin_mats / ida_mats [B, N_cam, 4, 4] and
-             bda_mat [B, 4, 4], float32
-(other keys, such as gt_boxes, are ignored) and `predict` returns the eval
+.predict(batch)`) for the LiDAR-only and the camera-only detector. The
+batch holds, for the LiDAR detector, one of the export's two input modes
+(without its `topo_*` tables, which only the TPU build uses):
+  "points"       points [B, P, 5] float32 (x, y, z, intensity, Δt) and
+                 points_mask [B, P] bool
+  "host_voxels"  voxel_feats [B, V, 5] float32 (mean VFE) and voxel_coords
+                 [B, V, 3] int32 (z, y, x; -1 on padding)
+and for the camera detector
+  imgs           [B, N_cam, H, W, 3] float32 (normalised)
+  mats           sensor2ego_mats / intrin_mats / ida_mats [B, N_cam, 4, 4]
+                 and bda_mat [B, 4, 4], float32
+(other keys, such as gt_boxes, are ignored). `predict` returns the eval
 step's fixed-size ROI dict: boxes [B, R, 9], scores [B, R], labels [B, R]
 (1-based), mask [B, R], as tensors on the detector's device.
 
@@ -32,8 +39,22 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+F32 = (torch.float32, np.float32)
+
+
+def _dtype(v):
+    return v.dtype if isinstance(v, torch.Tensor) else np.asarray(v).dtype
+
+
+def _expect(name: str, v, shape, dtypes) -> None:
+    if tuple(v.shape) != shape:
+        raise ValueError(f"batch[{name!r}] has shape {tuple(v.shape)}, expected {shape}")
+    if _dtype(v) not in dtypes:
+        raise ValueError(f"batch[{name!r}] has dtype {_dtype(v)}, expected {dtypes[0]}")
+
+
 class Detector:
-    """A camera BEVFusion-CenterHead detector ready to serve."""
+    """A LiDAR-only or camera-only BEVFusion-CenterHead detector ready to serve."""
 
     def __init__(self, cfg: ModelConfig, state_dict: Mapping[str, Any], device="cuda"):
         self.cfg = cfg
@@ -43,6 +64,23 @@ class Detector:
         self.model = model.to(self.device).eval()
 
     def _check(self, batch: Mapping[str, Any]) -> None:
+        if self.cfg.with_lidar:
+            self._check_lidar(batch)
+        else:
+            self._check_camera(batch)
+
+    def _check_lidar(self, batch: Mapping[str, Any]) -> None:
+        C = self.cfg.lidar_encoder.use_num_point_features
+        if "voxel_feats" in batch:
+            lead = tuple(batch["voxel_feats"].shape[:2])
+            _expect("voxel_feats", batch["voxel_feats"], lead + (C,), F32)
+            _expect("voxel_coords", batch["voxel_coords"], lead + (3,), (torch.int32, np.int32))
+        else:
+            lead = tuple(batch["points"].shape[:2])
+            _expect("points", batch["points"], lead + (C,), F32)
+            _expect("points_mask", batch["points_mask"], lead, (torch.bool, np.bool_))
+
+    def _check_camera(self, batch: Mapping[str, Any]) -> None:
         cc = self.cfg.camera_encoder
         H, W = cc.final_dim
         imgs = batch["imgs"]
@@ -59,9 +97,8 @@ class Detector:
             raise ValueError(f"batch['mats']['bda_mat'] has shape {tuple(mats['bda_mat'].shape)}, "
                              f"expected ({B}, 4, 4)")
         for name, v in [("imgs", imgs)] + [(f"mats/{k}", m) for k, m in mats.items()]:
-            dt = v.dtype if isinstance(v, torch.Tensor) else np.asarray(v).dtype
-            if dt not in (torch.float32, np.float32):
-                raise ValueError(f"batch[{name!r}] has dtype {dt}, expected float32")
+            if _dtype(v) not in F32:
+                raise ValueError(f"batch[{name!r}] has dtype {_dtype(v)}, expected float32")
 
     def predict(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         self._check(batch)

@@ -1,12 +1,17 @@
-"""Where the time of one full-width camera `Detector.predict` goes, on the card.
+"""Where the time of one full-width `Detector.predict` goes, on the card.
 
-    python -m unidistill_torch.serving.profile [--batch 4] [--requests 5] [--out DIR]
+    python -m unidistill_torch.serving.profile [--modality camera|lidar]
+        [--batch 4] [--requests 5] [--out DIR]
 
-Serves `camera_exp().model` (bf16, seeded random weights with BatchNorm
-statistics calibrated on the batch, nuScenes-like camera matrices) and
+Serves `camera_exp().model` (nuScenes-like camera matrices) or
+`lidar_exp().model` (nuScenes-like 10-sweep point clouds), in bf16 with
+seeded random weights and BatchNorm statistics calibrated on the batch, and
 reports:
   * per-stage device time by CUDA events around each stage (forward hooks
     on the modules, wrappers around the functions), mean over the requests;
+    for the LiDAR detector: voxelise, rulebooks, each encoder stage (its
+    strided conv and residual blocks), height compression, BEV backbone,
+    head, decode + NMS; and its sites per stage;
   * request latency (host clock around work ending in a synchronise);
   * from `torch.profiler` over the same number of requests: the summed
     device time of all kernels, the device's busy share of the wall time,
@@ -25,12 +30,20 @@ from pathlib import Path
 
 import torch
 
-STAGE_MODULES = {
+STAGE_MODULES = {"bev backbone": "bev_encoder", "head": "det_head"}
+CAMERA_MODULES = {
     "image backbone": "camera_encoder.img_backbone",
     "neck": "camera_encoder.img_neck",
     "depth net": "camera_encoder.depth_net",
-    "bev backbone": "bev_encoder",
-    "head": "det_head",
+}
+ENC = "lidar_encoder.backbone_3d"
+# encoder stage -> (first module, last module) of its span
+LIDAR_SPANS = {
+    "encoder s0 (conv_input, res1)": (f"{ENC}.conv_input", f"{ENC}.res1b"),
+    "encoder s2 (down2, res2)": (f"{ENC}.down2", f"{ENC}.res2b"),
+    "encoder s3 (down3, res3)": (f"{ENC}.down3", f"{ENC}.res3b"),
+    "encoder s4 (down4, res4)": (f"{ENC}.down4", f"{ENC}.res4b"),
+    "encoder s5 (conv_out)": (f"{ENC}.conv_out", f"{ENC}.bn_out"),
 }
 
 
@@ -51,9 +64,10 @@ class StageTimer:
         e.record()
         self.events[stage][-1][1] = e
 
-    def module(self, stage, mod):
+    def module(self, stage, mod, last=None):
+        """Time from the start of `mod` to the end of `last` (default: mod)."""
         h1 = mod.register_forward_pre_hook(lambda *a: self._start(stage))
-        h2 = mod.register_forward_hook(lambda *a: self._end(stage))
+        h2 = (last or mod).register_forward_hook(lambda *a: self._end(stage))
         self.undo += [h1.remove, h2.remove]
 
     def function(self, stage, owner, name):
@@ -76,8 +90,27 @@ class StageTimer:
         return {k: sum(s.elapsed_time(e) for s, e in v) / n_requests for k, v in self.events.items()}
 
 
+def camera_setup(batch_size):
+    from unidistill_torch.configs.nuscenes import camera_exp
+    from unidistill_torch.serving.synthetic import nuscenes_batch
+    cfg = camera_exp().model
+    batch = nuscenes_batch(cfg, batch_size, seed=1)
+    batch = {"imgs": torch.from_numpy(batch["imgs"]).cuda(),
+             "mats": {k: torch.from_numpy(v).cuda() for k, v in batch["mats"].items()}}
+    return cfg, batch
+
+
+def lidar_setup(batch_size):
+    from unidistill_torch.configs.nuscenes import lidar_exp
+    from unidistill_torch.serving.synthetic import lidar_batch
+    cfg = lidar_exp().model
+    batch = lidar_batch(cfg, batch_size, seed=11)
+    return cfg, {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--modality", choices=("camera", "lidar"), default="camera")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--requests", type=int, default=5)
     ap.add_argument("--out", default="build/profile")
@@ -85,23 +118,26 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
 
-    from unidistill_torch.configs.nuscenes import camera_exp
     from unidistill_torch.decode import proposals
-    from unidistill_torch.layers import lss
+    from unidistill_torch.layers import lidar_encoder, lss
     from unidistill_torch.serving.predictor import Detector
-    from unidistill_torch.serving.synthetic import calibrate_batchnorm, nuscenes_batch, random_state_dict
+    from unidistill_torch.serving.synthetic import calibrate_batchnorm, random_state_dict
     from unidistill_torch.training import steps
 
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    cfg = camera_exp().model
-    det = Detector(cfg, random_state_dict(cfg, seed=0), device="cuda")
-    batch = nuscenes_batch(cfg, args.batch, seed=1)
-    batch = {"imgs": torch.from_numpy(batch["imgs"]).cuda(),
-             "mats": {k: torch.from_numpy(v).cuda() for k, v in batch["mats"].items()}}
+    lidar = args.modality == "lidar"
+    cfg, batch = (lidar_setup if lidar else camera_setup)(args.batch)
+    det = Detector(cfg, random_state_dict(cfg, seed=10 if lidar else 0), device="cuda")
     calibrate_batchnorm(det.model, steps.model_inputs(batch, cfg, "cuda"))
+    sites = None
+    if lidar:  # the sites per stage of this batch, per sample
+        rb = lidar_encoder.build_rulebooks(**steps.model_inputs(batch, cfg, "cuda"),
+                                           shapes=lidar_encoder.stage_shapes(cfg.grid_size))
+        sites = [torch.bincount(st.coords[:, 0], minlength=args.batch).tolist() for st in rb.sites]
+        del rb
     for _ in range(2):
         det.predict(batch)
     torch.cuda.synchronize()
@@ -110,8 +146,17 @@ def main(argv=None) -> int:
     mods = dict(det.model.named_modules())
     for stage, name in STAGE_MODULES.items():
         timer.module(stage, mods[name])
-    timer.function("geometry", lss, "get_geometry")
-    timer.function("bev pool", lss, "bev_pool_outer")
+    if lidar:
+        timer.function("voxelise", steps, "voxelize_batch")
+        timer.function("rulebooks", lidar_encoder, "build_rulebooks")
+        for stage, (first, last) in LIDAR_SPANS.items():
+            timer.module(stage, mods[first], mods[last])
+        timer.function("height compression", lidar_encoder, "to_dense_bev")
+    else:
+        for stage, name in CAMERA_MODULES.items():
+            timer.module(stage, mods[name])
+        timer.function("geometry", lss, "get_geometry")
+        timer.function("bev pool", lss, "bev_pool_outer")
     timer.function("decode + nms", steps, "generate_proposals")
     timer.function("nms", proposals, "nms_bev_batched")
     timer.function("request", det, "predict")
@@ -141,7 +186,7 @@ def main(argv=None) -> int:
             f.write(f"{e.self_device_time_total / 1e3 / args.requests:10.4f} ms/request "
                     f"{e.count // args.requests:5d} launches/request  {e.key[:140]}\n")
     summary = dict(
-        device=smi, batch=args.batch, requests=args.requests,
+        device=smi, modality=args.modality, batch=args.batch, requests=args.requests,
         latency_ms=[round(x * 1e3, 3) for x in lat],
         frames_per_s=args.batch * len(lat) / sum(lat),
         stage_ms={k: round(v, 4) for k, v in sorted(stages.items(), key=lambda kv: -kv[1])},
@@ -150,6 +195,7 @@ def main(argv=None) -> int:
         device_busy_share=device_ms / wall_ms if device_ms else None,
         top_kernels=[(e.key[:80], round(e.self_device_time_total / 1e3 / args.requests, 4))
                      for e in kernels[:12]],
+        sites_per_stage=sites,
     )
     (out_dir / "stages.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps(summary))

@@ -1,5 +1,6 @@
-"""Seeded stand-ins for a checkpoint and a camera batch, for smoke runs and
-measurements on the card (no dataset and no trained weights needed).
+"""Seeded stand-ins for a checkpoint and for camera and LiDAR batches, for
+smoke runs and measurements on the card (no dataset and no trained weights
+needed).
 
 `random_state_dict(cfg, seed)` gives weights the detector loads strictly;
 `calibrate_batchnorm(model, inputs)` then sets every BatchNorm's running
@@ -13,6 +14,7 @@ of the eval pipeline), identity BDA, normalised random images.
 `rich_mats(B, N, H, W)` are the small-image matrices of the JAX package's
 full-model golden test, chosen so that frustum points land well inside BEV
 cells (cell truncation is bitwise-sensitive at the edges).
+`lidar_batch(cfg, B, seed)` gives nuScenes-like 10-sweep point clouds.
 """
 from __future__ import annotations
 
@@ -23,7 +25,10 @@ import torch
 from torch import nn
 
 from unidistill_torch.configs.nuscenes import ModelConfig
+from unidistill_torch.layers.lidar_encoder import SubMConv
 from unidistill_torch.models.bevfusion import BEVFusionCenterHead
+
+BatchNorm = nn.modules.batchnorm._BatchNorm
 
 
 def random_state_dict(cfg: ModelConfig, seed: int = 0) -> Dict[str, torch.Tensor]:
@@ -48,7 +53,9 @@ def random_state_dict(cfg: ModelConfig, seed: int = 0) -> Dict[str, torch.Tensor
             v = randn() * (2.0 / t.shape[0]) ** 0.5
         elif isinstance(mod, nn.Conv2d) and leaf == "weight":
             v = randn() * (2.0 / (t.shape[1] * t.shape[2] * t.shape[3])) ** 0.5
-        elif isinstance(mod, nn.BatchNorm2d) and leaf == "weight":
+        elif isinstance(mod, SubMConv) and leaf == "weight":  # [K, Cin, Cout]
+            v = randn() * (2.0 / (t.shape[0] * t.shape[1])) ** 0.5
+        elif isinstance(mod, BatchNorm) and leaf == "weight":
             v = 1.0 + 0.1 * randn()
         elif leaf == "running_var":
             v = torch.ones(t.shape)
@@ -66,8 +73,9 @@ def random_state_dict(cfg: ModelConfig, seed: int = 0) -> Dict[str, torch.Tensor
 def calibrate_batchnorm(model: nn.Module, inputs: Dict) -> None:
     """Replace every BatchNorm's running statistics by the statistics of
     one forward pass over `inputs` (keyword arguments of `model`); leaves
-    the model in eval mode."""
-    bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
+    the model in eval mode. The LiDAR encoder's BatchNorms see its active
+    voxels only: its feature rows are exactly those."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
     for m in bns:
         m.reset_running_stats()
         m.momentum = None  # cumulative average: one batch gives its own statistics
@@ -141,3 +149,94 @@ def small_batch(cfg: ModelConfig, B: int, seed: int) -> Dict:
     H, W = cfg.camera_encoder.final_dim
     return dict(imgs=_images(cfg, B, np.random.RandomState(seed)),
                 mats=rich_mats(B, cfg.camera_encoder.num_cams, H, W))
+
+
+# nuScenes-like LiDAR: a 32-beam spinning sensor 1.84 m above the ground,
+# 10 sweeps 0.05 s apart while the car drives 0.5 m per sweep
+LIDAR_ELEVATION_DEG = (-30.67, 10.67)
+LIDAR_BEAMS = 32
+LIDAR_AZIMUTH_STEPS = 1080
+LIDAR_HEIGHT = 1.84
+LIDAR_SWEEPS = 10
+LIDAR_SWEEP_DT = 0.05
+LIDAR_EGO_STEP = 0.5
+LIDAR_MAX_RANGE = 70.0
+LIDAR_DROPOUT = 0.1
+
+
+def _lidar_scene(rng: np.random.RandomState) -> np.ndarray:
+    """Boxes standing on the ground, [M, 6] (cx, cy, yaw, length, width,
+    height): cars and pedestrians within 45 m, walls at 30-50 m."""
+    def ring(n, r_lo, r_hi):
+        r, a = rng.uniform(r_lo, r_hi, n), rng.uniform(-np.pi, np.pi, n)
+        return r * np.cos(a), r * np.sin(a), a
+    n_car, n_ped, n_wall = rng.randint(15, 30), rng.randint(8, 20), rng.randint(6, 12)
+    x, y, _ = ring(n_car, 5.0, 45.0)
+    cars = np.stack([x, y, rng.uniform(-np.pi, np.pi, n_car), rng.uniform(4.0, 5.2, n_car),
+                     rng.uniform(1.7, 2.1, n_car), rng.uniform(1.4, 1.9, n_car)], 1)
+    x, y, _ = ring(n_ped, 4.0, 35.0)
+    peds = np.stack([x, y, rng.uniform(-np.pi, np.pi, n_ped), np.full(n_ped, 0.7),
+                     np.full(n_ped, 0.7), rng.uniform(1.6, 1.9, n_ped)], 1)
+    x, y, a = ring(n_wall, 30.0, 50.0)
+    walls = np.stack([x, y, a + np.pi / 2, rng.uniform(10.0, 30.0, n_wall), np.full(n_wall, 0.5),
+                      rng.uniform(3.0, 9.0, n_wall)], 1)
+    return np.concatenate([cars, peds, walls])
+
+
+def _cast_rays(origin: np.ndarray, dirs: np.ndarray, boxes: np.ndarray) -> np.ndarray:
+    """Distance along each ray [R, 3] to the ground or the nearest box (inf
+    where it hits nothing within range)."""
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t = np.where(dirs[:, 2] < 0, -LIDAR_HEIGHT / dirs[:, 2], np.inf)
+        cx, cy, yaw, length, width, height = boxes.T
+        c, s = np.cos(yaw), np.sin(yaw)
+        px, py = origin[0] - cx, origin[1] - cy  # [M]
+        pz = origin[2] - (-LIDAR_HEIGHT + height / 2)
+        # ray in each box's frame: [R, M] per axis
+        p = (c * px + s * py, -s * px + c * py, pz)
+        d = (dirs[:, :1] * c + dirs[:, 1:2] * s, -dirs[:, :1] * s + dirs[:, 1:2] * c,
+             np.broadcast_to(dirs[:, 2:3], (dirs.shape[0], boxes.shape[0])))
+        t_near = np.full(d[0].shape, -np.inf)
+        t_far = np.full(d[0].shape, np.inf)
+        for pa, da, half in zip(p, d, (length / 2, width / 2, height / 2)):
+            t1, t2 = (-half - pa) / da, (half - pa) / da
+            t_near = np.maximum(t_near, np.nan_to_num(np.minimum(t1, t2), nan=-np.inf))
+            t_far = np.minimum(t_far, np.nan_to_num(np.maximum(t1, t2), nan=np.inf))
+        hit = (t_far >= t_near) & (t_near > 0)
+        t = np.minimum(t, np.where(hit, t_near, np.inf).min(1))
+    return np.where(t < LIDAR_MAX_RANGE, t, np.inf)
+
+
+def lidar_batch(cfg: ModelConfig, B: int, seed: int) -> Dict:
+    """nuScenes-like 10-sweep point clouds in the key frame's LiDAR frame:
+    points [B, P, 5] (x, y, z, intensity, Δt) f32 and points_mask [B, P],
+    P = cfg.caps.max_points. Each sweep is one turn of 32 beams from
+    -30.67° to +10.67° elevation at 1080 azimuth steps, 10% of returns
+    dropped, 2 cm range noise; sweep s was taken 0.05·s seconds earlier,
+    0.5·s metres behind. A cloud longer than P keeps P of its points, drawn
+    at random and kept in order (a small configuration's P thins it)."""
+    rng = np.random.RandomState(seed)
+    P = cfg.caps.max_points
+    elev = np.deg2rad(np.linspace(*LIDAR_ELEVATION_DEG, LIDAR_BEAMS))
+    points = np.zeros((B, P, 5), np.float32)
+    mask = np.zeros((B, P), bool)
+    for b in range(B):
+        boxes = _lidar_scene(rng)
+        sweeps = []
+        for s in range(LIDAR_SWEEPS):
+            az = rng.uniform(0, 2 * np.pi) + np.linspace(0, 2 * np.pi, LIDAR_AZIMUTH_STEPS, endpoint=False)
+            e, a = np.meshgrid(elev, az, indexing="ij")
+            dirs = np.stack([np.cos(e) * np.cos(a), np.cos(e) * np.sin(a), np.sin(e)], -1).reshape(-1, 3)
+            origin = np.array([-LIDAR_EGO_STEP * s, 0.0, 0.0])
+            t = _cast_rays(origin, dirs, boxes)
+            keep = np.isfinite(t) & (rng.rand(t.shape[0]) >= LIDAR_DROPOUT)
+            t = t[keep] + rng.normal(0, 0.02, keep.sum())
+            xyz = origin + t[:, None] * dirs[keep]
+            sweeps.append(np.concatenate([xyz, rng.uniform(0, 255, (len(t), 1)),
+                                          np.full((len(t), 1), LIDAR_SWEEP_DT * s)], 1))
+        cloud = np.concatenate(sweeps)
+        if len(cloud) > P:
+            cloud = cloud[np.sort(rng.choice(len(cloud), P, replace=False))]
+        points[b, :len(cloud)] = cloud
+        mask[b, :len(cloud)] = True
+    return dict(points=points, points_mask=mask)

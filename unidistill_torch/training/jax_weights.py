@@ -10,7 +10,10 @@ with dots. Layouts:
   * ConvTranspose kernel [kh, kw, I, O]      -> ConvTranspose2d weight
     [I, O, kh, kw], spatially flipped (torch mirrors the kernel, flax does
     not; the inverse of the JAX importer's `conv_transpose2d`)
+  * sparse conv kernel [K, Cin, Cout]        -> the same array (the LiDAR
+    encoder's weights keep the JAX layout, z-major taps; conv_out has K = 3)
   * BatchNorm scale/bias + mean/var          -> weight/bias + running_*
+    (the LiDAR encoder's MaskedBatchNorms included)
   * det_head out_kernel [3, 3, G, hc, o_max] -> grouped out_conv weight
     [G·o_max, hc, 3, 3]; out_bias [G, o_max] -> [G·o_max]
 """
@@ -58,7 +61,9 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping, cfg: ModelConfig)
         elif path == ("awl_params",):
             sd["awl_params"] = a
         elif leaf == "kernel":
-            if mod in deconvs:
+            if mod.startswith("lidar_encoder."):
+                sd[f"{mod}.weight"] = a
+            elif mod in deconvs:
                 sd[f"{mod}.weight"] = a[::-1, ::-1].transpose(2, 3, 0, 1)
             else:
                 sd[f"{mod}.weight"] = a.transpose(3, 2, 0, 1)
