@@ -28,16 +28,30 @@ Phases, each printed on its own line:
   K4       each of the 21 recorded sparse convs of one request, K4 vs its
            plain version: max error, kernel / plain / library / bound ms
   lidar heads, lidar rois, lidar tiny   as heads, rois and tiny, for LiDAR
+  distill train   the camera student (`camera_exp().model`, seeded random
+           weights) learns from the frozen LiDAR teacher (`lidar_exp()
+           .model`, BatchNorm calibrated) on `train_batch(..., B=4)`: one
+           warm-up step, then timed steps with every launch count set to 0
+           just before and read just after; s/step, frames/s, peak memory,
+           the five loss terms (finite), the parameter change (nonzero);
+           per step K1 and K5 must launch once and K4 21 times
+  camera train    as distill train, for the camera detector's `train_step`
+           alone (K1 and K5 once a step, no K4)
+  K5       the BEV-pool backward on the g recorded from a distill step,
+           kernel vs plain version; kernel / plain / bound ms
+  train tiny      a small float32 camera train step on the card vs the same
+           step on the CPU (TF32 off): loss, metrics and every gradient
 
 Any failed phase raises, so the script exits non-zero. The last three lines
 are the kernel table (JSON; K4's ms, plain_ms, library_ms and bound_ms are
-sums over the 21 convs of one request), the card's name and power limit,
-and {"ok": true, "device": {...}}. nvcc's register report goes to
-build/unidistill_torch/nvcc.log.
+sums over the 21 convs of one request; K5's launches are those of the timed
+distill steps), the card's name and power limit, and {"ok": true, "device":
+{...}}. nvcc's register report goes to build/unidistill_torch/nvcc.log.
 """
 import contextlib
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -79,6 +93,17 @@ TINY_REL_TOL = 5e-3
 K4_TOL_RTOL = 1e-2
 K4_TOL_ATOL_OF_MAX = 1e-4
 SPARSE_CONVS_PER_REQUEST = 21
+TIMED_STEPS = 3
+# K5 against its plain version, both divided by max |ref|: no atomics, the
+# channel dot products and depth sums are float32 sums in another order
+K5_TOL = dict(rtol=1e-5, atol=1e-5)
+# the tiny train step, card vs CPU in f32 with TF32 off: loss and metrics
+# rtol 1e-3, every gradient within 5e-3 of its scale (max |g| of the tensor,
+# at least 1e-3 of the largest |g|); cuDNN's f32 convolution algorithms round
+# otherwise than the CPU's, and train-mode BatchNorm carries that through
+# ~70 layers (the CPU test against JAX holds 2e-3 with the same weights)
+TRAIN_TINY_LOSS_RTOL = 1e-3
+TRAIN_TINY_GRAD_TOL = 5e-3
 
 
 def log(phase, **kv):
@@ -492,6 +517,181 @@ def lidar_phases(dev, table) -> None:
     card_vs_cpu("lidar tiny", tcfg, hg, hc)
 
 
+def tame(model) -> None:
+    """BatchNorm scales × 0.3 and biases + 1: keeps a random BN-ReLU network
+    in train mode out of its chaotic regime, where round-off of 1e-7 moves
+    gradients by tens of percent (tests/test_torch_train_step.py)."""
+    from torch import nn
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.modules.batchnorm._BatchNorm):
+                m.weight.mul_(0.3)
+                m.bias.add_(1.0)
+
+
+def to_device(batch, dev):
+    out = {}
+    for k, v in batch.items():
+        out[k] = to_device(v, dev) if isinstance(v, dict) else torch.from_numpy(v).to(dev)
+    return out
+
+
+def train_run(phase, step_fn, student, want):
+    """One warm-up step (`step_fn()` returns the metrics), then the timed
+    steps with every launch count set to 0 just before and read just after;
+    each kernel in `want` must launch exactly that often per step. Checks
+    the loss terms and the parameter change."""
+    from unidistill_torch.kernels import build
+    from unidistill_torch.training.steps import metrics_to_host
+    metrics_to_host(step_fn())
+    before = [p.detach().clone() for p in student.parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    times, host = [], []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        host.append(metrics_to_host(step_fn()))  # the one read-back of a step
+        times.append(time.perf_counter() - t0)
+    launches = dict(build.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    change = max((p.detach() - b).abs().max().item() for p, b in zip(student.parameters(), before))
+    del before
+    terms = {k: v for k, v in host[-1].items() if not k.startswith("task_")}
+    log(phase, batch=BATCH, steps=TIMED_STEPS, s_per_step=[round(t, 4) for t in times],
+        frames_per_s=f"{BATCH * len(times) / sum(times):.3f}", peak_mem_gib=f"{peak_gib:.3f}",
+        param_max_change=f"{change:.3e}", launches=json.dumps(launches, sort_keys=True),
+        **{k: f"{v:.6g}" for k, v in sorted(terms.items())})
+    for k, n in want.items():
+        if launches.get(k, 0) != n * TIMED_STEPS:
+            raise RuntimeError(f"{phase}: kernel {k} launched {launches.get(k, 0)} times in "
+                               f"{TIMED_STEPS} steps, expected {n} a step")
+    for h in host:
+        bad = [k for k, v in h.items() if not math.isfinite(v)]
+        if bad:
+            raise RuntimeError(f"{phase}: non-finite metrics {bad}")
+    if not change > 0:
+        raise RuntimeError(f"{phase}: the parameters did not change")
+    return launches
+
+
+def train_phases(dev, table) -> None:
+    """The training paths: distill train (main path), camera train, K5,
+    train tiny."""
+    from unidistill_torch.configs.nuscenes import (
+        DISTILL_VARIANTS, camera_exp, distill_exp, lidar_exp, tiny_model)
+    from unidistill_torch.models.bevfusion import BEVFusionCenterHead
+    from unidistill_torch.ops import bev_pool
+    from unidistill_torch.serving.synthetic import (
+        calibrate_batchnorm, random_state_dict, small_batch, train_batch)
+    from unidistill_torch.training import steps
+    from unidistill_torch.training.train_state import TrainState, make_optimizer
+
+    # ---- distill train: camera student <- frozen LiDAR teacher -------------
+    s_cfg, t_cfg = camera_exp().model, lidar_exp().model
+    exp = distill_exp("lidar", "camera")
+    t0 = time.time()
+    batch = to_device(train_batch(s_cfg, t_cfg, BATCH, seed=21), dev)
+    data_s = time.time() - t0
+    teacher = BEVFusionCenterHead(t_cfg)
+    teacher.load_state_dict(random_state_dict(t_cfg, seed=10))
+    teacher.to(dev).requires_grad_(False)
+    calibrate_batchnorm(teacher, steps.model_inputs(batch, t_cfg, dev))
+    student = BEVFusionCenterHead(s_cfg)
+    student.load_state_dict(random_state_dict(s_cfg, seed=0))
+    student.to(dev)
+    opt = make_optimizer(student, exp.train)
+    state = TrainState()
+    n_gt = (batch["gt_boxes"].abs().sum(-1) > 0).sum(1).tolist()
+    log("distill data", frames=BATCH, gt_boxes=n_gt, points=batch["points_mask"].sum(1).tolist(),
+        seconds=f"{data_s:.2f}")
+    step = lambda: steps.distill_train_step(state, batch, student, teacher, opt, s_cfg, t_cfg,
+                                            DISTILL_VARIANTS[("lidar", "camera")])
+    with Recorder(bev_pool, "bev_pool_bwd_cuda") as bwd_rec:
+        launches = train_run("distill train", step, student,
+                             dict(bev_pool_fwd=1, bev_pool_bwd=1, sparse_conv_fwd=SPARSE_CONVS_PER_REQUEST))
+        rec_args = bwd_rec.calls[0][0]
+        bwd_rec.calls.clear()
+        bwd_rec.results.clear()
+    if teacher.training or any(p.grad is not None for p in teacher.parameters()):
+        raise RuntimeError("distill train: the teacher was trained")
+    del teacher, student, opt, state
+    torch.cuda.empty_cache()
+
+    # ---- camera train: the detector's own train step ----------------------
+    student = BEVFusionCenterHead(s_cfg)
+    student.load_state_dict(random_state_dict(s_cfg, seed=0))
+    student.to(dev)
+    opt = make_optimizer(student, camera_exp().train)
+    state = TrainState()
+    cam_batch = {k: batch[k] for k in ("imgs", "mats", "gt_boxes")}
+    train_run("camera train", lambda: steps.train_step(state, cam_batch, student, opt, s_cfg), student,
+              dict(bev_pool_fwd=1, bev_pool_bwd=1))
+    del student, opt, state, batch, cam_batch
+    torch.cuda.empty_cache()
+
+    # ---- K5: the recorded backward, kernel vs plain -------------------------
+    cell, depth, context, g, ncells = rec_args
+    gd_k, gc_k = bev_pool.bev_pool_bwd_cuda(cell, depth, context, g, ncells)
+    gd_p, gc_p = bev_pool.bev_pool_outer_bwd_plain(cell, depth, context, g, ncells)
+    torch.cuda.synchronize()
+    errs = []
+    for got, ref in ((gd_k, gd_p), (gc_k, gc_p)):
+        scale = ref.abs().max().clamp_min(1e-30)
+        torch.testing.assert_close(got / scale, ref / scale, **K5_TOL)
+        errs.append(max_err(got, ref)[0])
+    ms = cuda_ms(lambda: bev_pool.bev_pool_bwd_cuda(cell, depth, context, g, ncells))
+    plain_ms = cuda_ms(lambda: bev_pool.bev_pool_outer_bwd_plain(cell, depth, context, g, ncells), iters=3)
+    C = context.shape[-1]
+    n_valid = int(((cell >= 0) & (cell < ncells)).sum().item())
+    k5_bytes = (cell.numel() * 4 + depth.numel() * 4 * 2 + context.numel() * 4 * 2 + g.numel() * 4)
+    k5_ops = 4 * n_valid * C  # two multiply-adds per channel per valid point
+    bytes_ms, ops_ms = k5_bytes / HBM_BYTES_PER_S * 1e3, k5_ops / F32_OPS_PER_S * 1e3
+    log("K5 bev_pool_bwd", points=cell.numel(), valid_points=n_valid, C=C,
+        g_max=f"{g.abs().max().item():.3e}", max_abs_err_depth=f"{errs[0]:.3e}",
+        max_abs_err_context=f"{errs[1]:.3e}", tol=f"{K5_TOL} of max|ref|", ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{max(bytes_ms, ops_ms):.4f}",
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    table.append(dict(name="bev_pool_bwd", route="cuda", source="unidistill_torch/csrc/bev_pool.cu",
+                      replaces="unidistill_tpu/ops/bev_pool.py:282", launches=launches["bev_pool_bwd"],
+                      max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                      bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=None))
+    del rec_args, cell, depth, context, g, gd_k, gc_k, gd_p, gc_p
+    torch.cuda.empty_cache()
+
+    # ---- small input: a train step on the card against the CPU -------------
+    tcfg = dataclasses.replace(tiny_model(with_lidar=False), compute_dtype="float32")
+    boxes = train_batch(tcfg, tiny_model(with_camera=False), 2, seed=23)["gt_boxes"]
+    tbatch = dict(small_batch(tcfg, 2, seed=3), gt_boxes=boxes)
+    sd = random_state_dict(tcfg, seed=2)
+    results = {}
+    for label, device in (("cpu", torch.device("cpu")), ("card", dev)):
+        model = BEVFusionCenterHead(tcfg)
+        model.load_state_dict(sd)
+        tame(model)
+        model.to(device)
+        opt = make_optimizer(model, camera_exp().train)
+        metrics = steps.metrics_to_host(steps.train_step(TrainState(), tbatch, model, opt, tcfg))
+        unclip = max(1.0, metrics["grad_norm"] / opt.grad_clip)  # .grad holds the clipped gradients
+        results[label] = metrics, {k: (p.grad * unclip).cpu() for k, p in model.named_parameters()}
+    (m_c, g_c), (m_g, g_g) = results["cpu"], results["card"]
+    for k, v in m_c.items():
+        if not math.isclose(m_g[k], v, rel_tol=TRAIN_TINY_LOSS_RTOL, abs_tol=1e-6):
+            raise RuntimeError(f"train tiny: metric {k} card {m_g[k]} vs CPU {v}")
+    top = max(t.abs().max().item() for t in g_c.values())
+    worst, worst_k = 0.0, None
+    for k, ref in g_c.items():
+        err = (g_g[k] - ref).abs().max().item() / max(ref.abs().max().item(), 1e-3 * top)
+        if err > worst:
+            worst, worst_k = err, k
+    log("train tiny", loss_cpu=f"{m_c['loss']:.6g}", loss_card=f"{m_g['loss']:.6g}",
+        grad_norm_cpu=f"{m_c['grad_norm']:.6g}", grad_norm_card=f"{m_g['grad_norm']:.6g}",
+        worst_grad_err_over_scale=f"{worst:.3e}", at=worst_k, tol=TRAIN_TINY_GRAD_TOL,
+        metrics_rtol=TRAIN_TINY_LOSS_RTOL)
+    if worst > TRAIN_TINY_GRAD_TOL:
+        raise RuntimeError(f"train tiny: gradient {worst_k} differs by {worst:.3e} of its scale")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -526,6 +726,8 @@ def main() -> int:
     camera_phases(dev, table)
     torch.cuda.empty_cache()
     lidar_phases(dev, table)
+    torch.cuda.empty_cache()
+    train_phases(dev, table)
 
     log("done", seconds=f"{time.time() - t_start:.1f}")
     print(json.dumps({"kernels": table}))

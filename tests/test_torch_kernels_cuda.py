@@ -5,7 +5,11 @@ JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py -m cuda
 
-Tolerances: K1 rtol/atol 1e-5 (float32 atomics sum in another order); K2
+Tolerances: K1 rtol/atol 1e-5 (float32 atomics sum in another order); K5
+rtol/atol 1e-5 (no atomics; the channel dot products sum in another order);
+the K1/K5 gradient against float64 central differences of the plain forward
+rtol 1e-5 (the forward is bilinear, so the differences are exact up to
+float64 round-off; the kernels sum in float32); K2
 float mode rtol 1e-4, atol 1e-5 (same float math, libm cos/sin may differ
 by an ulp); K2 mask bits and K3 keep sets exactly (no IoU within 1e-4 of
 the threshold in these inputs); K4 in float32 rtol/atol 1e-4 (up to 27·128
@@ -50,6 +54,68 @@ def test_bev_pool_kernel_matches_plain(cuda_device, C):
     ref = bev_pool.bev_pool_outer_plain(*args, vn)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,fH,fW", [(256, 4, 6), (300, 3, 5)], ids=["C256", "C300_ragged"])
+def test_bev_pool_backward_kernel_matches_plain(cuda_device, C, fH, fW):
+    """K5 against its plain version; points outside the grid get 0."""
+    geom, depth, ctx, (nx, ny, nz) = _pool_inputs(1, C=C, fH=fH, fW=fW)
+    cell = bev_pool._linear_index(torch.from_numpy(geom), nx, ny, nz).int().to(cuda_device)
+    depth, ctx = torch.from_numpy(depth).to(cuda_device), torch.from_numpy(ctx).to(cuda_device)
+    g = torch.randn(depth.shape[0], nx * ny, C, generator=torch.Generator().manual_seed(2)).to(cuda_device)
+    from unidistill_torch.kernels import build
+    before = build.LAUNCHES["bev_pool_bwd"]
+    gd, gc = bev_pool.bev_pool_bwd_cuda(cell, depth, ctx, g, nx * ny)
+    assert build.LAUNCHES["bev_pool_bwd"] == before + 1
+    rd, rc = bev_pool.bev_pool_outer_bwd_plain(cell, depth, ctx, g, nx * ny)
+    torch.cuda.synchronize()
+    outside = (cell < 0) | (cell >= nx * ny)
+    assert outside.any() and (gd[outside] == 0).all()
+    torch.testing.assert_close(gd, rd, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(gc, rc, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_bev_pool_gives_gradients_on_the_card(cuda_device):
+    """bev_pool_outer on CUDA tensors is differentiable (K1 forward, K5
+    backward) and its gradients equal autograd of the plain version."""
+    geom, depth, ctx, vn = _pool_inputs(2, C=64)
+    from unidistill_torch.kernels import build
+    before = build.LAUNCHES["bev_pool_bwd"]
+    args = [torch.from_numpy(a).to(cuda_device) for a in (geom, depth, ctx)]
+    d, c = args[1].requires_grad_(True), args[2].requires_grad_(True)
+    out = bev_pool.bev_pool_outer(args[0], d, c, vn)
+    g = torch.randn_like(out)
+    out.backward(g)
+    assert build.LAUNCHES["bev_pool_bwd"] == before + 1
+    d2, c2 = args[1].detach().clone().requires_grad_(True), args[2].detach().clone().requires_grad_(True)
+    bev_pool.bev_pool_outer_plain(args[0], d2, c2, vn).backward(g)
+    torch.testing.assert_close(d.grad, d2.grad, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(c.grad, c2.grad, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_bev_pool_function_against_finite_differences(cuda_device):
+    """gradcheck-style: <K5(g), v> against the float64 central difference
+    of <g, plain forward> along random directions v of depth and context."""
+    geom, depth, ctx, vn = _pool_inputs(3, B=1, NC=2, D=5, fH=3, fW=4, C=40, nx=8, ny=6)
+    geom = torch.from_numpy(geom).to(cuda_device)
+    d = torch.from_numpy(depth).to(cuda_device).requires_grad_(True)
+    c = torch.from_numpy(ctx).to(cuda_device).requires_grad_(True)
+    out = bev_pool.bev_pool_outer(geom, d, c, vn)
+    gen = torch.Generator().manual_seed(4)
+    g = torch.randn(out.shape, generator=gen, dtype=torch.float64).to(cuda_device)
+    out.backward(g.float())
+    d64, c64 = d.detach().double(), c.detach().double()
+    f = lambda dd, cc: (g * bev_pool.bev_pool_outer_plain(geom, dd, cc, vn)).sum()
+    eps = 1e-3
+    for _ in range(4):
+        vd = torch.randn(d64.shape, generator=gen, dtype=torch.float64).to(cuda_device)
+        vc = torch.randn(c64.shape, generator=gen, dtype=torch.float64).to(cuda_device)
+        fd = (f(d64 + eps * vd, c64 + eps * vc) - f(d64 - eps * vd, c64 - eps * vc)) / (2 * eps)
+        an = (d.grad.double() * vd).sum() + (c.grad.double() * vc).sum()
+        torch.testing.assert_close(an, fd, rtol=1e-5, atol=1e-6)
 
 
 def _lanes(device, L=3, K=128):

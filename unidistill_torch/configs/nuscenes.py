@@ -6,8 +6,9 @@ Torch-free: the values are plain Python, read by the modules at build time.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 POINT_CLOUD_RANGE = (-54.0, -54.0, -5.0, 54.0, 54.0, 3.0)
 VOXEL_SIZE = (0.075, 0.075, 0.2)
@@ -37,6 +38,9 @@ TASKS: Tuple[Tuple[str, ...], ...] = (
     ("motorcycle", "bicycle"),
     ("pedestrian", "traffic_cone"),
 )
+
+# class name -> 1-based label id (column 9 of gt_boxes)
+CLASS_TO_IDX = {name: i + 1 for i, name in enumerate(CLASS_NAMES)}
 
 
 @dataclass(frozen=True)
@@ -192,6 +196,31 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class DistillConfig:
+    """Cross-modality distillation weights: total = det + w_feature·feature
+    + w_rel·bev_rel + w_resp·(resp_cls + resp_reg). The teacher heatmap is
+    clamp(sigmoid(hm / teacher_hm_temp), teacher_hm_clamp, 1 - clamp); the
+    student's arrives already sigmoided and clamped by its own head loss."""
+
+    teacher: str = "lidar"  # lidar | camera | fusion
+    student: str = "camera"
+    w_feature: float = 100.0
+    w_rel: float = 40.0
+    w_resp: float = 10.0
+    teacher_hm_temp: float = 2.0
+    teacher_hm_clamp: float = 1e-4
+
+
+# (teacher, student) -> DistillConfig
+DISTILL_VARIANTS: Dict[Tuple[str, str], DistillConfig] = {
+    ("lidar", "camera"): DistillConfig("lidar", "camera", 100.0, 40.0, 10.0, 2.0, 1e-4),
+    ("fusion", "camera"): DistillConfig("fusion", "camera", 10.0, 5.0, 10.0, 2.0, 1e-3),
+    ("camera", "lidar"): DistillConfig("camera", "lidar", 10.0, 5.0, 1.0, 2.0, 1e-4),
+    ("fusion", "lidar"): DistillConfig("fusion", "lidar", 10.0, 1.0, 10.0, 2.0, 1e-4),
+}
+
+
+@dataclass(frozen=True)
 class DataConfig:
     root_path: str = "/data/dataset"
     nusc_version: str = "v1.0-trainval"
@@ -237,7 +266,7 @@ class ExpConfig:
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
-    distill: Optional[object] = None
+    distill: Optional[DistillConfig] = None
 
 
 def lidar_exp() -> ExpConfig:
@@ -259,6 +288,19 @@ def camera_exp() -> ExpConfig:
         exp_name="BEVFusion_nuscenes_centerhead_camera_exp",
         model=ModelConfig(with_lidar=False),
         train=TrainConfig(lr=2e-4),
+    )
+
+
+def distill_exp(teacher: str, student: str) -> ExpConfig:
+    """A distillation experiment: the student's experiment at lr 2e-4 with
+    the pair's weights from `DISTILL_VARIANTS`."""
+    dcfg = DISTILL_VARIANTS[(teacher, student)]
+    base = camera_exp() if student == "camera" else lidar_exp()
+    return dataclasses.replace(
+        base,
+        exp_name=f"BEVFusion_nuscenes_centerhead_{student}_exp_distill_{teacher}",
+        train=dataclasses.replace(base.train, lr=2e-4),
+        distill=dcfg,
     )
 
 

@@ -45,6 +45,8 @@ SIGNATURES = {
     "bev_pool": {
         # cell, depth, ctx, out, n_rays, rays_per_batch, D, HW, C, ncells, stream
         "bev_pool_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        # cell, depth, ctx, g, g_depth, g_ctx, n_rays, rays_per_batch, D, HW, C, ncells, stream
+        "bev_pool_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     },
     "nms": {
         # boxes_a, boxes_b, out, L, M, N, stream

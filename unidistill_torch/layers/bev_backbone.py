@@ -1,7 +1,7 @@
 """SECOND-style dense 2D BEV backbone (NCHW), counterpart of the JAX
 `layers/bev_backbone.py`: per branch one strided 3×3 conv and `layer_nums`
-3×3 convs (BN eps 1e-3 + ReLU), then a deblock to stride 1; the branches are
-concatenated on channels."""
+3×3 convs (BN eps 1e-3, flax momentum 0.99, + ReLU), then a deblock to
+stride 1; the branches are concatenated on channels."""
 from __future__ import annotations
 
 from typing import Dict, Sequence, Tuple
@@ -9,7 +9,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 from torch import nn
 
-from unidistill_torch.layers.resnet import conv_bn_act
+from unidistill_torch.layers.common import BatchNorm, Conv2d, ConvTranspose2d, conv_bn_act
 
 
 class BaseBEVBackbone(nn.Module):
@@ -20,20 +20,20 @@ class BaseBEVBackbone(nn.Module):
                  num_upsample_filters: Sequence[int] = (256, 256)):
         super().__init__()
         self.layer_nums = tuple(layer_nums)
-        bn = lambda c: nn.BatchNorm2d(c, eps=1e-3)
+        bn = lambda c: BatchNorm(c, eps=1e-3, momentum=0.99)
         cin = in_channels
         for i, (n, s, f) in enumerate(zip(layer_nums, layer_strides, num_filters)):
-            self.add_module(f"block{i}_conv0", nn.Conv2d(cin, f, 3, stride=s, padding=1, bias=False))
+            self.add_module(f"block{i}_conv0", Conv2d(cin, f, 3, stride=s, padding=1, bias=False))
             self.add_module(f"block{i}_bn0", bn(f))
             for k in range(n):
-                self.add_module(f"block{i}_conv{k + 1}", nn.Conv2d(f, f, 3, padding=1, bias=False))
+                self.add_module(f"block{i}_conv{k + 1}", Conv2d(f, f, 3, padding=1, bias=False))
                 self.add_module(f"block{i}_bn{k + 1}", bn(f))
             us, uf = upsample_strides[i], num_upsample_filters[i]
             if us >= 1:
-                u = nn.ConvTranspose2d(f, uf, int(us), stride=int(us), bias=False)
+                u = ConvTranspose2d(f, uf, int(us), stride=int(us), bias=False)
             else:
                 ds = int(round(1 / us))
-                u = nn.Conv2d(f, uf, ds, stride=ds, bias=False)
+                u = Conv2d(f, uf, ds, stride=ds, bias=False)
             self.add_module(f"deblock{i}_conv", u)
             self.add_module(f"deblock{i}_bn", bn(uf))
             cin = f

@@ -1,7 +1,8 @@
 """CenterPoint-style multi-task detection head (NCHW), branch-fused,
 counterpart of the JAX `layers/center_head.py`.
 
-One shared 3×3 conv (+BN+ReLU); then all G = tasks × heads branches at once:
+One shared 3×3 conv (+BN+ReLU; BN flax momentum 0.9); then all G = tasks ×
+heads branches at once:
   * `branches_conv0`: one 3×3 conv hc -> G·hc (+BN+ReLU);
   * `out_conv`: the JAX block-diagonal dense 3×3 conv G·hc -> G·o_max, which
     is exactly a grouped conv with groups=G; each branch keeps the first
@@ -15,7 +16,8 @@ from typing import Dict, List, Tuple
 import torch
 from torch import nn
 
-from unidistill_torch.layers.resnet import conv_bn_act
+from unidistill_torch.layers.common import BatchNorm, Conv2d, conv_bn_act
+
 
 def branch_list(
     tasks: Tuple[Tuple[str, ...], ...],
@@ -38,11 +40,11 @@ class CenterHead(nn.Module):
         self.branches = branch_list(self.tasks, tuple(common_heads))
         G = len(self.branches)
         self.o_max = max(ch for _, _, ch in self.branches)
-        self.shared_conv = nn.Conv2d(in_channels, share_conv_channel, 3, padding=1, bias=True)
-        self.shared_bn = nn.BatchNorm2d(share_conv_channel, eps=1e-5)
-        self.branches_conv0 = nn.Conv2d(share_conv_channel, G * head_conv, 3, padding=1, bias=True)
-        self.branches_bn0 = nn.BatchNorm2d(G * head_conv, eps=1e-5)
-        self.out_conv = nn.Conv2d(G * head_conv, G * self.o_max, 3, padding=1, groups=G, bias=False)
+        self.shared_conv = Conv2d(in_channels, share_conv_channel, 3, padding=1, bias=True)
+        self.shared_bn = BatchNorm(share_conv_channel, eps=1e-5, momentum=0.9)
+        self.branches_conv0 = Conv2d(share_conv_channel, G * head_conv, 3, padding=1, bias=True)
+        self.branches_bn0 = BatchNorm(G * head_conv, eps=1e-5, momentum=0.9)
+        self.out_conv = Conv2d(G * head_conv, G * self.o_max, 3, padding=1, groups=G, bias=False)
         bias = torch.zeros(G, self.o_max)
         for g, (_tid, name, ch) in enumerate(self.branches):
             if name == "hm":
@@ -52,7 +54,7 @@ class CenterHead(nn.Module):
     def forward(self, x: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
         x = conv_bn_act(self.shared_conv, self.shared_bn, x)
         h = conv_bn_act(self.branches_conv0, self.branches_bn0, x)
-        y = self.out_conv(h.to(self.out_conv.weight.dtype)).float()
+        y = self.out_conv(h).float()
         y = y + self.out_bias.float()[None, :, None, None]
         B, _, H, W = y.shape
         y = y.reshape(B, len(self.branches), self.o_max, H, W)

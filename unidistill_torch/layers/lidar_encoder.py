@@ -26,8 +26,10 @@ over the whole batch (kernel K4 on the card). All rulebooks are built first,
 by `build_rulebooks`, from the voxel coordinates alone. There are no
 fixed-shape stage caps: every stage holds its true active sites.
 
-Numerics: convolutions run in the weights' dtype (bf16 for the served
-model) and sum in f32; BatchNorm, ReLU and the residual sums run in f32.
+Numerics: weights are held in f32 and cast with the features to the
+convs' `compute_dtype` (bf16 for the served model) at the call; the convs
+sum in f32; BatchNorm (flax momentum 0.99), ReLU and the residual sums run
+in f32.
 The SparseBasicBlock convs carry a bias that is added before the BatchNorm
 (a quirk of the reference, kept for its checkpoints).
 """
@@ -41,6 +43,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from unidistill_torch.configs.nuscenes import LidarEncoderConfig
+from unidistill_torch.layers.common import BatchNorm
 from unidistill_torch.ops.sparse_conv import (
     Shape3,
     SparseTensor,
@@ -96,19 +99,21 @@ def build_rulebooks(voxel_feats: torch.Tensor, voxel_coords: torch.Tensor,
     return Rulebooks(sites, subm, down)
 
 
-class MaskedBatchNorm(nn.BatchNorm1d):
-    """BatchNorm over the active voxels [N, C] (momentum 0.99 in flax terms,
-    eps 1e-3). The JAX module masks the padding slots of its fixed-size
-    buffers; here every row is an active site, so nothing needs a mask."""
+class MaskedBatchNorm(BatchNorm):
+    """BatchNorm over the active voxels [N, C] (flax momentum 0.99, eps
+    1e-3). The JAX module masks the padding slots of its fixed-size buffers;
+    here every row is an active site, so nothing needs a mask."""
 
     def __init__(self, channels: int):
-        super().__init__(channels, eps=1e-3, momentum=0.01)
+        super().__init__(channels, eps=1e-3, momentum=0.99)
 
 
 class SubMConv(nn.Module):
-    """3×3×3 submanifold conv; weight [27, Cin, Cout]."""
+    """3×3×3 submanifold conv; weight [27, Cin, Cout] in f32, cast with the
+    features to `compute_dtype` at the call."""
 
     kernel_size = (3, 3, 3)
+    compute_dtype = torch.float32
 
     def __init__(self, cin: int, cout: int, bias: bool):
         super().__init__()
@@ -117,8 +122,10 @@ class SubMConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
-        """x [N_in, Cin] -> [N_out, Cout] in the weight's dtype."""
-        return sparse_conv(x.to(self.weight.dtype), nbr, self.weight, self.bias)
+        """x [N_in, Cin] -> [N_out, Cout] in the compute dtype."""
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return sparse_conv(x.to(dt), nbr, self.weight.to(dt), bias)
 
 
 class SparseDownConv(SubMConv):

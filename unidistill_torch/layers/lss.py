@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from unidistill_torch.configs.nuscenes import CameraEncoderConfig
+from unidistill_torch.layers.common import Conv2d
 from unidistill_torch.layers.resnet import ResNet
 from unidistill_torch.layers.second_fpn import SECONDFPN
 from unidistill_torch.ops.bev_pool import bev_pool_outer
@@ -103,7 +104,7 @@ class LSSFPN(nn.Module):
         self.img_backbone = ResNet()
         self.img_neck = SECONDFPN(cfg.img_neck_in_channels, cfg.img_neck_out_channels,
                                   cfg.img_neck_upsample_strides)
-        self.depth_net = nn.Conv2d(sum(cfg.img_neck_out_channels),
+        self.depth_net = Conv2d(sum(cfg.img_neck_out_channels),
                                    cfg.depth_channels + cfg.output_channels, 1, bias=True)
         self.register_buffer("frustum", torch.from_numpy(make_frustum(cfg)), persistent=False)
 
@@ -118,7 +119,7 @@ class LSSFPN(nn.Module):
         x = imgs.reshape(B * N, H, W, 3).permute(0, 3, 1, 2)
         fpn = self.img_neck(self.img_backbone(x))  # [B*N, 512, fH, fW]
         D, C = cfg.depth_channels, cfg.output_channels
-        dc = self.depth_net(fpn.to(self.depth_net.weight.dtype)).float()
+        dc = self.depth_net(fpn).float()
         fH, fW = dc.shape[2:]
         depth = torch.softmax(dc[:, :D], dim=1).reshape(B, N, D, fH, fW)
         context = dc[:, D:].permute(0, 2, 3, 1).reshape(B, N, fH, fW, C)

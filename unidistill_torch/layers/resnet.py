@@ -2,8 +2,9 @@
 
 Submodule names follow the JAX parameter tree (`conv1`, `bn1`,
 `layer{s}_{b}.conv1` ...) so that `training/jax_weights.py` maps one onto the
-other by name. Convolutions run in the module's compute dtype; BatchNorm and
-the residual sums run in float32, as in the JAX module.
+other by name. Convolutions run in the module's compute dtype; BatchNorm
+(flax momentum 0.9, eps 1e-5) and the residual sums run in float32, as in the
+JAX module.
 """
 from __future__ import annotations
 
@@ -13,26 +14,22 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-
-def conv_bn_act(conv: nn.Module, bn: nn.Module, x: torch.Tensor, relu: bool = True) -> torch.Tensor:
-    """conv in its weights' dtype, then BN (and ReLU) in float32."""
-    y = bn(conv(x.to(conv.weight.dtype)).float())
-    return F.relu(y) if relu else y
+from unidistill_torch.layers.common import BatchNorm, Conv2d, conv_bn_act
 
 
 class Bottleneck(nn.Module):
     def __init__(self, cin: int, planes: int, stride: int, downsample: bool):
         super().__init__()
-        bn = lambda c: nn.BatchNorm2d(c, eps=1e-5)
-        self.conv1 = nn.Conv2d(cin, planes, 1, bias=False)
+        bn = lambda c: BatchNorm(c, eps=1e-5, momentum=0.9)
+        self.conv1 = Conv2d(cin, planes, 1, bias=False)
         self.bn1 = bn(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, stride=stride, padding=1, bias=False)
         self.bn2 = bn(planes)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.conv3 = Conv2d(planes, planes * 4, 1, bias=False)
         self.bn3 = bn(planes * 4)
         self.downsample = downsample
         if downsample:
-            self.downsample_conv = nn.Conv2d(cin, planes * 4, 1, stride=stride, bias=False)
+            self.downsample_conv = Conv2d(cin, planes * 4, 1, stride=stride, bias=False)
             self.downsample_bn = bn(planes * 4)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -53,8 +50,8 @@ class ResNet(nn.Module):
                  out_indices: Tuple[int, ...] = (0, 1, 2, 3)):
         super().__init__()
         self.out_indices = tuple(out_indices)
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=1e-5)
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = BatchNorm(64, eps=1e-5, momentum=0.9)
         self.stages: List[List[str]] = []
         cin, planes = 64, 64
         for stage, n_blocks in enumerate(block_counts):

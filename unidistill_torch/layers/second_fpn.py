@@ -2,7 +2,7 @@
 
 Each level gets one deblock: a transposed conv with k = s = stride when the
 upsample stride s >= 1, a VALID conv with k = s = 1/stride when it is below 1;
-then BN (eps 1e-3) + ReLU in float32; the levels are concatenated on channels.
+then BN (eps 1e-3, flax momentum 0.99) + ReLU in float32; the levels are concatenated on channels.
 """
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ from typing import List, Sequence
 import torch
 from torch import nn
 
-from unidistill_torch.layers.resnet import conv_bn_act
+from unidistill_torch.layers.common import BatchNorm, Conv2d, ConvTranspose2d, conv_bn_act
 
 
 class SECONDFPN(nn.Module):
@@ -22,12 +22,12 @@ class SECONDFPN(nn.Module):
         for i, (cin, c, s) in enumerate(zip(in_channels, out_channels, upsample_strides)):
             if s >= 1:
                 k = int(s)
-                conv = nn.ConvTranspose2d(cin, c, k, stride=k, bias=False)
+                conv = ConvTranspose2d(cin, c, k, stride=k, bias=False)
             else:
                 k = int(round(1 / s))
-                conv = nn.Conv2d(cin, c, k, stride=k, bias=False)
+                conv = Conv2d(cin, c, k, stride=k, bias=False)
             self.add_module(f"deblock{i}_conv", conv)
-            self.add_module(f"deblock{i}_bn", nn.BatchNorm2d(c, eps=1e-3))
+            self.add_module(f"deblock{i}_bn", BatchNorm(c, eps=1e-3, momentum=0.99))
 
     def forward(self, feats: List[torch.Tensor]) -> torch.Tensor:
         assert len(feats) == self.n

@@ -7,9 +7,10 @@ lidar_encoder (sparse voxel encoder -> [B, 256, ny, nx]) or camera_encoder
 The LiDAR-only and the camera-only detectors run; fusion (both modalities
 and the fusion encoder) is not ported yet and raises.
 
-Convolution weights, the sparse ones included, are held in
-`cfg.compute_dtype`; BatchNorm, the head's output bias, `awl_params` and
-every output stay float32, as in the JAX model.
+Every parameter is held in float32 (flax's default `param_dtype`); each
+convolution, the sparse ones included, casts its input and weights to
+`cfg.compute_dtype` at the call. BatchNorm, the head's output bias,
+`awl_params` and every output stay float32, as in the JAX model.
 The JAX model's `nn.remat` wrappers save TPU memory in training and change
 no math, so they have no counterpart here.
 """
@@ -23,6 +24,7 @@ from torch import nn
 from unidistill_torch.configs.nuscenes import ModelConfig
 from unidistill_torch.layers.bev_backbone import BaseBEVBackbone
 from unidistill_torch.layers.center_head import CenterHead
+from unidistill_torch.layers.common import Conv2d, ConvTranspose2d
 from unidistill_torch.layers.lidar_encoder import LidarEncoder, SubMConv
 from unidistill_torch.layers.lss import LSSFPN
 
@@ -55,8 +57,8 @@ class BEVFusionCenterHead(nn.Module):
         self.awl_params = nn.Parameter(torch.ones(len(cfg.det_head.code_weights) + 2))
         dtype = DTYPES[cfg.compute_dtype]
         for m in self.modules():
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, SubMConv)):
-                m.to(dtype)
+            if isinstance(m, (Conv2d, ConvTranspose2d, SubMConv)):
+                m.compute_dtype = dtype
 
     def forward(self, voxel_feats: Optional[torch.Tensor] = None,
                 voxel_coords: Optional[torch.Tensor] = None,

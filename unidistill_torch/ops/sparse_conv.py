@@ -255,7 +255,12 @@ def sparse_conv_cuda(features: torch.Tensor, nbr: torch.Tensor, weight: torch.Te
 def sparse_conv(features: torch.Tensor, nbr: torch.Tensor, weight: torch.Tensor,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """out[i] = bias + Σ_k weight[k]ᵀ·features[nbr[i, k]] (missing taps add
-    nothing), summed in f32 and returned in the features' dtype."""
+    nothing), summed in f32 and returned in the features' dtype. On the card
+    K4 has no backward yet, so a call that autograd would differentiate
+    raises instead of returning a result without a gradient."""
     if not features.is_cuda:
         return sparse_conv_plain(features, nbr, weight, bias)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (features, weight, bias)):
+        raise NotImplementedError("sparse_conv: K4 has no backward yet; run the LiDAR encoder "
+                                  "on the card under torch.no_grad() or with frozen weights")
     return sparse_conv_cuda(features, nbr, weight, bias)

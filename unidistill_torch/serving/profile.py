@@ -1,12 +1,16 @@
-"""Where the time of one full-width `Detector.predict` goes, on the card.
+"""Where the time of one full-width `Detector.predict`, or of one distill
+train step, goes on the card.
 
-    python -m unidistill_torch.serving.profile [--modality camera|lidar]
+    python -m unidistill_torch.serving.profile [--modality camera|lidar|distill]
         [--batch 4] [--requests 5] [--out DIR]
 
 Serves `camera_exp().model` (nuScenes-like camera matrices) or
 `lidar_exp().model` (nuScenes-like 10-sweep point clouds), in bf16 with
-seeded random weights and BatchNorm statistics calibrated on the batch, and
-reports:
+seeded random weights and BatchNorm statistics calibrated on the batch; or,
+with `--modality distill`, trains the camera student from the frozen LiDAR
+teacher with `distill_train_step` on `train_batch` (a request is then one
+step: teacher forward, student forward, assigner, detection loss, distill
+losses, backward with K5 inside, optimizer). It reports:
   * per-stage device time by CUDA events around each stage (forward hooks
     on the modules, wrappers around the functions), mean over the requests;
     for the LiDAR detector: voxelise, rulebooks, each encoder stage (its
@@ -108,9 +112,52 @@ def lidar_setup(batch_size):
     return cfg, {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
 
 
+def distill_setup(batch_size):
+    """The distill step at full width, as `chip_smoke.py` [distill train]
+    runs it: (cfg, step function, a function to time inside the step)."""
+    from unidistill_torch.configs.nuscenes import DISTILL_VARIANTS, camera_exp, distill_exp, lidar_exp
+    from unidistill_torch.models.bevfusion import BEVFusionCenterHead
+    from unidistill_torch.serving.synthetic import calibrate_batchnorm, random_state_dict, train_batch
+    from unidistill_torch.training import steps
+    from unidistill_torch.training.train_state import TrainState, make_optimizer
+    s_cfg, t_cfg = camera_exp().model, lidar_exp().model
+    batch = train_batch(s_cfg, t_cfg, batch_size, seed=21)
+    batch = {k: ({m: torch.from_numpy(a).cuda() for m, a in v.items()} if isinstance(v, dict)
+                 else torch.from_numpy(v).cuda()) for k, v in batch.items()}
+    teacher = BEVFusionCenterHead(t_cfg)
+    teacher.load_state_dict(random_state_dict(t_cfg, seed=10))
+    teacher.cuda().requires_grad_(False)
+    calibrate_batchnorm(teacher, steps.model_inputs(batch, t_cfg, "cuda"))
+    student = BEVFusionCenterHead(s_cfg)
+    student.load_state_dict(random_state_dict(s_cfg, seed=0))
+    student.cuda()
+    opt = make_optimizer(student, distill_exp("lidar", "camera").train)
+    state = TrainState()
+
+    def step():
+        return steps.metrics_to_host(steps.distill_train_step(
+            state, batch, student, teacher, opt, s_cfg, t_cfg, DISTILL_VARIANTS[("lidar", "camera")]))
+    return s_cfg, step, teacher, student, opt
+
+
+def time_distill(timer, teacher, student, opt):
+    from unidistill_torch.ops import bev_pool
+    from unidistill_torch.training import steps
+    timer.module("teacher forward", teacher)
+    timer.module("student forward", student)
+    timer.function("assigner", steps, "assign_targets")
+    timer.function("detection loss", steps, "center_head_loss")
+    for name in ("feature_distill_loss", "bev_distill_loss", "response_distill_loss"):
+        timer.function("distill losses", steps, name)
+    timer.function("backward", torch.Tensor, "backward")
+    timer.function("K5 (in backward)", bev_pool, "bev_pool_bwd_cuda")
+    timer.function("optimizer", opt, "step")
+    timer.function("step", steps, "distill_train_step")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--modality", choices=("camera", "lidar"), default="camera")
+    ap.add_argument("--modality", choices=("camera", "lidar", "distill"), default="camera")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--requests", type=int, default=5)
     ap.add_argument("--out", default="build/profile")
@@ -129,51 +176,58 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     lidar = args.modality == "lidar"
-    cfg, batch = (lidar_setup if lidar else camera_setup)(args.batch)
-    det = Detector(cfg, random_state_dict(cfg, seed=10 if lidar else 0), device="cuda")
-    calibrate_batchnorm(det.model, steps.model_inputs(batch, cfg, "cuda"))
     sites = None
-    if lidar:  # the sites per stage of this batch, per sample
-        rb = lidar_encoder.build_rulebooks(**steps.model_inputs(batch, cfg, "cuda"),
-                                           shapes=lidar_encoder.stage_shapes(cfg.grid_size))
-        sites = [torch.bincount(st.coords[:, 0], minlength=args.batch).tolist() for st in rb.sites]
-        del rb
-    for _ in range(2):
-        det.predict(batch)
-    torch.cuda.synchronize()
-
     timer = StageTimer()
-    mods = dict(det.model.named_modules())
-    for stage, name in STAGE_MODULES.items():
-        timer.module(stage, mods[name])
-    if lidar:
-        timer.function("voxelise", steps, "voxelize_batch")
-        timer.function("rulebooks", lidar_encoder, "build_rulebooks")
-        for stage, (first, last) in LIDAR_SPANS.items():
-            timer.module(stage, mods[first], mods[last])
-        timer.function("height compression", lidar_encoder, "to_dense_bev")
+    if args.modality == "distill":
+        cfg, run, teacher, student, opt = distill_setup(args.batch)
+        run()  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        time_distill(timer, teacher, student, opt)
     else:
-        for stage, name in CAMERA_MODULES.items():
+        cfg, batch = (lidar_setup if lidar else camera_setup)(args.batch)
+        det = Detector(cfg, random_state_dict(cfg, seed=10 if lidar else 0), device="cuda")
+        calibrate_batchnorm(det.model, steps.model_inputs(batch, cfg, "cuda"))
+        run = lambda: det.predict(batch)
+        if lidar:  # the sites per stage of this batch, per sample
+            rb = lidar_encoder.build_rulebooks(**steps.model_inputs(batch, cfg, "cuda"),
+                                               shapes=lidar_encoder.stage_shapes(cfg.grid_size))
+            sites = [torch.bincount(st.coords[:, 0], minlength=args.batch).tolist() for st in rb.sites]
+            del rb
+        for _ in range(2):
+            run()
+        torch.cuda.synchronize()
+        mods = dict(det.model.named_modules())
+        for stage, name in STAGE_MODULES.items():
             timer.module(stage, mods[name])
-        timer.function("geometry", lss, "get_geometry")
-        timer.function("bev pool", lss, "bev_pool_outer")
-    timer.function("decode + nms", steps, "generate_proposals")
-    timer.function("nms", proposals, "nms_bev_batched")
-    timer.function("request", det, "predict")
+        if lidar:
+            timer.function("voxelise", steps, "voxelize_batch")
+            timer.function("rulebooks", lidar_encoder, "build_rulebooks")
+            for stage, (first, last) in LIDAR_SPANS.items():
+                timer.module(stage, mods[first], mods[last])
+            timer.function("height compression", lidar_encoder, "to_dense_bev")
+        else:
+            for stage, name in CAMERA_MODULES.items():
+                timer.module(stage, mods[name])
+            timer.function("geometry", lss, "get_geometry")
+            timer.function("bev pool", lss, "bev_pool_outer")
+        timer.function("decode + nms", steps, "generate_proposals")
+        timer.function("nms", proposals, "nms_bev_batched")
+        timer.function("request", det, "predict")
     lat = []
     for _ in range(args.requests):
         t0 = time.perf_counter()
-        det.predict(batch)
+        run()
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t0)
     stages = timer.mean_ms(args.requests)
     timer.remove()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.requests):
-            det.predict(batch)
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     prof.export_chrome_trace(str(out_dir / "trace.json"))
@@ -187,7 +241,7 @@ def main(argv=None) -> int:
                     f"{e.count // args.requests:5d} launches/request  {e.key[:140]}\n")
     summary = dict(
         device=smi, modality=args.modality, batch=args.batch, requests=args.requests,
-        latency_ms=[round(x * 1e3, 3) for x in lat],
+        latency_ms=[round(x * 1e3, 3) for x in lat], peak_mem_gib=peak_gib,
         frames_per_s=args.batch * len(lat) / sum(lat),
         stage_ms={k: round(v, 4) for k, v in sorted(stages.items(), key=lambda kv: -kv[1])},
         profiled_wall_ms_per_request=wall_ms / args.requests,

@@ -14,7 +14,9 @@ of the eval pipeline), identity BDA, normalised random images.
 `rich_mats(B, N, H, W)` are the small-image matrices of the JAX package's
 full-model golden test, chosen so that frustum points land well inside BEV
 cells (cell truncation is bitwise-sensitive at the edges).
-`lidar_batch(cfg, B, seed)` gives nuScenes-like 10-sweep point clouds.
+`lidar_batch(cfg, B, seed)` gives nuScenes-like 10-sweep point clouds;
+`train_batch(s_cfg, t_cfg, B, seed)` the frames of a distill step: camera
+images and matrices, LiDAR clouds and the GT boxes of the clouds' scenes.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from unidistill_torch.configs.nuscenes import ModelConfig
+from unidistill_torch.configs.nuscenes import CLASS_TO_IDX, ModelConfig
 from unidistill_torch.layers.lidar_encoder import SubMConv
 from unidistill_torch.models.bevfusion import BEVFusionCenterHead
 
@@ -73,17 +75,19 @@ def random_state_dict(cfg: ModelConfig, seed: int = 0) -> Dict[str, torch.Tensor
 def calibrate_batchnorm(model: nn.Module, inputs: Dict) -> None:
     """Replace every BatchNorm's running statistics by the statistics of
     one forward pass over `inputs` (keyword arguments of `model`); leaves
-    the model in eval mode. The LiDAR encoder's BatchNorms see its active
-    voxels only: its feature rows are exactly those."""
+    the model in eval mode and each BatchNorm with its own momentum. The
+    LiDAR encoder's BatchNorms see its active voxels only: its feature rows
+    are exactly those."""
     bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    momenta = [m.momentum for m in bns]
     for m in bns:
         m.reset_running_stats()
         m.momentum = None  # cumulative average: one batch gives its own statistics
     model.train()
     model(**inputs)
     model.eval()
-    for m in bns:
-        m.momentum = 0.1
+    for m, momentum in zip(bns, momenta):
+        m.momentum = momentum
         m.num_batches_tracked.zero_()
 
 
@@ -165,8 +169,9 @@ LIDAR_DROPOUT = 0.1
 
 
 def _lidar_scene(rng: np.random.RandomState) -> np.ndarray:
-    """Boxes standing on the ground, [M, 6] (cx, cy, yaw, length, width,
-    height): cars and pedestrians within 45 m, walls at 30-50 m."""
+    """Boxes standing on the ground, [M, 7] (cx, cy, yaw, length, width,
+    height, class id): cars and pedestrians within 45 m, walls (class 0)
+    at 30-50 m."""
     def ring(n, r_lo, r_hi):
         r, a = rng.uniform(r_lo, r_hi, n), rng.uniform(-np.pi, np.pi, n)
         return r * np.cos(a), r * np.sin(a), a
@@ -180,7 +185,9 @@ def _lidar_scene(rng: np.random.RandomState) -> np.ndarray:
     x, y, a = ring(n_wall, 30.0, 50.0)
     walls = np.stack([x, y, a + np.pi / 2, rng.uniform(10.0, 30.0, n_wall), np.full(n_wall, 0.5),
                       rng.uniform(3.0, 9.0, n_wall)], 1)
-    return np.concatenate([cars, peds, walls])
+    ids = np.concatenate([np.full(n_car, CLASS_TO_IDX["car"]), np.full(n_ped, CLASS_TO_IDX["pedestrian"]),
+                          np.zeros(n_wall)])
+    return np.concatenate([np.concatenate([cars, peds, walls]), ids[:, None]], 1)
 
 
 def _cast_rays(origin: np.ndarray, dirs: np.ndarray, boxes: np.ndarray) -> np.ndarray:
@@ -188,7 +195,7 @@ def _cast_rays(origin: np.ndarray, dirs: np.ndarray, boxes: np.ndarray) -> np.nd
     where it hits nothing within range)."""
     with np.errstate(divide="ignore", invalid="ignore"):
         t = np.where(dirs[:, 2] < 0, -LIDAR_HEIGHT / dirs[:, 2], np.inf)
-        cx, cy, yaw, length, width, height = boxes.T
+        cx, cy, yaw, length, width, height = boxes[:, :6].T
         c, s = np.cos(yaw), np.sin(yaw)
         px, py = origin[0] - cx, origin[1] - cy  # [M]
         pz = origin[2] - (-LIDAR_HEIGHT + height / 2)
@@ -215,13 +222,21 @@ def lidar_batch(cfg: ModelConfig, B: int, seed: int) -> Dict:
     dropped, 2 cm range noise; sweep s was taken 0.05·s seconds earlier,
     0.5·s metres behind. A cloud longer than P keeps P of its points, drawn
     at random and kept in order (a small configuration's P thins it)."""
+    points, mask, _ = _lidar_clouds(cfg, B, seed)
+    return dict(points=points, points_mask=mask)
+
+
+def _lidar_clouds(cfg: ModelConfig, B: int, seed: int):
+    """`lidar_batch`'s clouds and the scene of each sample."""
     rng = np.random.RandomState(seed)
     P = cfg.caps.max_points
     elev = np.deg2rad(np.linspace(*LIDAR_ELEVATION_DEG, LIDAR_BEAMS))
     points = np.zeros((B, P, 5), np.float32)
     mask = np.zeros((B, P), bool)
+    scenes = []
     for b in range(B):
         boxes = _lidar_scene(rng)
+        scenes.append(boxes)
         sweeps = []
         for s in range(LIDAR_SWEEPS):
             az = rng.uniform(0, 2 * np.pi) + np.linspace(0, 2 * np.pi, LIDAR_AZIMUTH_STEPS, endpoint=False)
@@ -239,4 +254,27 @@ def lidar_batch(cfg: ModelConfig, B: int, seed: int) -> Dict:
             cloud = cloud[np.sort(rng.choice(len(cloud), P, replace=False))]
         points[b, :len(cloud)] = cloud
         mask[b, :len(cloud)] = True
-    return dict(points=points, points_mask=mask)
+    return points, mask, scenes
+
+
+def scene_gt_boxes(scenes, G: int) -> np.ndarray:
+    """The cars and pedestrians of each scene as gt_boxes [B, G, 10] (x, y,
+    z, dx, dy, dz, rot, vx, vy, cls), standing on the ground 1.84 m below
+    the sensor, at rest; zero rows pad, boxes past G are dropped."""
+    gt = np.zeros((len(scenes), G, 10), np.float32)
+    for b, boxes in enumerate(scenes):
+        obj = boxes[boxes[:, 6] > 0][:G]
+        cx, cy, yaw, length, width, height, cls = obj.T
+        gt[b, :len(obj)] = np.stack([cx, cy, -LIDAR_HEIGHT + height / 2, length, width, height, yaw,
+                                     np.zeros_like(cx), np.zeros_like(cx), cls], 1)
+    return gt
+
+
+def train_batch(s_cfg: ModelConfig, t_cfg: ModelConfig, B: int, seed: int) -> Dict:
+    """A frame batch for the distill step: the nuScenes-like camera batch
+    of the student (`nuscenes_batch`), the LiDAR clouds of the teacher
+    (`lidar_batch`) and the boxes of the LiDAR scenes' cars and pedestrians
+    (`scene_gt_boxes`, up to the student's `caps.max_gt_boxes`)."""
+    points, mask, scenes = _lidar_clouds(t_cfg, B, seed)
+    return dict(nuscenes_batch(s_cfg, B, seed), points=points, points_mask=mask,
+                gt_boxes=scene_gt_boxes(scenes, s_cfg.caps.max_gt_boxes))

@@ -16,6 +16,10 @@ with dots. Layouts:
     (the LiDAR encoder's MaskedBatchNorms included)
   * det_head out_kernel [3, 3, G, hc, o_max] -> grouped out_conv weight
     [G·o_max, hc, 3, 3]; out_bias [G, o_max] -> [G·o_max]
+Every transform is a permutation, so a JAX gradient tree maps onto the
+port's names as its parameters do (`state_dict_from_jax(grads, {}, cfg)`),
+and the `batch_stats` a JAX train step returns map onto the running
+statistics.
 """
 from __future__ import annotations
 
