@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels from `unidistill_torch/csrc`, serves the two
-full-width detectors through `Detector.predict` at batch 4 (bf16, seeded
-random weights, BatchNorm statistics calibrated on the batch) -- the camera
-detector (`camera_exp().model`) and the LiDAR detector (`lidar_exp().model`,
-from nuScenes-like 10-sweep point clouds) -- and holds every kernel of each
-path against its plain PyTorch version on the inputs the path gave it.
+Builds the hand-written kernels from `unidistill_torch/csrc`, serves the
+three full-width detectors through `Detector.predict` at batch 4 (bf16,
+seeded random weights, BatchNorm statistics calibrated on the batch) -- the
+camera detector (`camera_exp().model`), the LiDAR detector
+(`lidar_exp().model`, from nuScenes-like 10-sweep point clouds) and the
+fusion detector -- trains each detector and the four distillation pairs,
+and holds every kernel of each path against its plain PyTorch version on
+the inputs the path gave it.
 Phases, each printed on its own line:
 
   device   card name and power limit (nvidia-smi), torch and CUDA versions
@@ -41,12 +43,31 @@ Phases, each printed on its own line:
            kernel vs plain version; kernel / plain / bound ms
   train tiny      a small float32 camera train step on the card vs the same
            step on the CPU (TF32 off): loss, metrics and every gradient
+  lidar train     the LiDAR detector (`lidar_exp().model`, seeded random
+           weights) trains with `train_step` on the same frames at the
+           train voxel cap, as distill train: s/step, frames/s, peak memory;
+           per step K4 must launch 21 times forward and 20 times as the input
+           gradient (`sparse_conv_dgrad`, every conv but conv_input), K6 21
+           times, K1/K5 never
+  K4 sparse_conv_dgrad, K6 sparse_conv_wgrad   each call of one recorded
+           LiDAR train step, kernel vs plain version in bf16 and in f32:
+           max error, kernel / plain / library (`torch.mm` per tap on a
+           prebuilt gather) / bound ms, summed over the step
+  distill camera->lidar   the LiDAR student from the frozen camera teacher
+           (K1 once, K4 21 + 20 dgrad, K6 21 a step)
+  lidar train tiny        as train tiny, for a small LiDAR detector
+  fusion predict  as predict, for the fusion detector (`fusion_exp().model`,
+           both encoders): K1 once, K4 21 times, K2 and K3 once a request
+  fusion train, distill fusion->lidar, distill fusion->camera   as distill
+           train, with one warm-up and one timed step each
 
 Any failed phase raises, so the script exits non-zero. The last three lines
 are the kernel table (JSON; K4's ms, plain_ms, library_ms and bound_ms are
-sums over the 21 convs of one request; K5's launches are those of the timed
-distill steps), the card's name and power limit, and {"ok": true, "device":
-{...}}. nvcc's register report goes to build/unidistill_torch/nvcc.log.
+sums over the 21 convs of one request, K4 dgrad's and K6's over the 20 and
+21 calls of one LiDAR train step; K5's launches are those of the timed
+distill steps, K4 dgrad's and K6's those of the timed LiDAR train steps),
+the card's name and power limit, and {"ok": true, "device": {...}}. nvcc's
+register report goes to build/unidistill_torch/nvcc.log.
 """
 import contextlib
 import dataclasses
@@ -93,7 +114,15 @@ TINY_REL_TOL = 5e-3
 K4_TOL_RTOL = 1e-2
 K4_TOL_ATOL_OF_MAX = 1e-4
 SPARSE_CONVS_PER_REQUEST = 21
+SPARSE_CONV_DGRADS_PER_STEP = 20  # every sparse conv but conv_input, whose input needs no gradient
 TIMED_STEPS = 3
+# the sparse conv's backward kernels against their plain versions on the
+# tensors of one LiDAR train step, as (rtol, atol over max |ref|): K4 as the
+# input gradient as K4 (in bf16 both round once after f32 sums in another
+# order, a one-ulp flip is 2^-7 of a value; in f32 only the order differs);
+# K6 sums exact products (bf16 x bf16 fits f32) in f32 in another order
+K4_DGRAD_TOL = {torch.bfloat16: (1e-2, 1e-4), torch.float32: (1e-4, 1e-4)}
+K6_TOL = (1e-4, 1e-4)
 # K5 against its plain version, both divided by max |ref|: no atomics, the
 # channel dot products and depth sums are float32 sums in another order
 K5_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -166,7 +195,7 @@ class PlainVersions:
                       (lidar_encoder, "sparse_conv", lidar_encoder.sparse_conv)]
         lss.bev_pool_outer = bev_pool.bev_pool_outer_plain
         proposals.nms_bev_batched = nms.nms_bev_batched_plain
-        lidar_encoder.sparse_conv = sparse_conv.sparse_conv_plain
+        lidar_encoder.sparse_conv = lambda f, nbr, w, b=None, nbr_t=None: sparse_conv.sparse_conv_plain(f, nbr, w, b)
         return self
 
     def __exit__(self, *exc):
@@ -303,7 +332,7 @@ def camera_phases(dev, table) -> None:
     batch = nuscenes_batch(cfg, BATCH, seed=1)
     batch_dev = {"imgs": torch.from_numpy(batch["imgs"]).to(dev),
                  "mats": {k: torch.from_numpy(v).to(dev) for k, v in batch["mats"].items()}}
-    calibrate_batchnorm(det.model, model_inputs(batch_dev, cfg, dev))
+    calibrate_batchnorm(det.model, model_inputs(batch_dev, cfg, dev, training=False))
     pool_rec, nms_rec = Recorder(lss, "bev_pool_outer"), Recorder(proposals, "nms_bev_batched")
     serve("predict", det, cfg, batch_dev, [pool_rec, nms_rec],
           dict(bev_pool_fwd=TIMED_REQUESTS, rotated_iou_mask=TIMED_REQUESTS,
@@ -390,18 +419,18 @@ def camera_phases(dev, table) -> None:
     # ---- heads and ROIs: kernels vs plain versions on the card ---------------
     # in bf16 the pool's f32 round-off flips bf16 roundings, and the flips
     # spread through the ~20 bf16 convolutions after it
-    compare_heads("", det, cfg, model_inputs(batch_dev, cfg, dev))
+    compare_heads("", det, cfg, model_inputs(batch_dev, cfg, dev, training=False))
 
     # ---- small input: the card against the CPU -----------------------------
     tcfg = dataclasses.replace(tiny_model(with_lidar=False), compute_dtype="float32")
     tbatch = small_batch(tcfg, 2, seed=3)
     det_cpu = Detector(tcfg, random_state_dict(tcfg, seed=2), device="cpu")
-    calibrate_batchnorm(det_cpu.model, model_inputs(tbatch, tcfg, "cpu"))
+    calibrate_batchnorm(det_cpu.model, model_inputs(tbatch, tcfg, "cpu", training=False))
     det_gpu = Detector(tcfg, det_cpu.model.state_dict(), device="cuda")
     with Recorder(lss, "bev_pool_outer") as rec_g, torch.no_grad():
-        hg = det_gpu.model(**model_inputs(tbatch, tcfg, dev))
+        hg = det_gpu.model(**model_inputs(tbatch, tcfg, dev, training=False))
     with Recorder(lss, "bev_pool_outer") as rec_c, torch.no_grad():
-        hc = det_cpu.model(**model_inputs(tbatch, tcfg, "cpu"))
+        hc = det_cpu.model(**model_inputs(tbatch, tcfg, "cpu", training=False))
     moved = int((rec_g.calls[0][0][0].cpu() != rec_c.calls[0][0][0]).any(-1).sum().item())
     if moved:
         raise RuntimeError(f"tiny detector: {moved} frustum points fall in other cells on the card")
@@ -426,7 +455,7 @@ def lidar_phases(dev, table) -> None:
     batch = lidar_batch(cfg, BATCH, seed=11)
     cloud_s = time.time() - t0
     batch_dev = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-    calibrate_batchnorm(det.model, model_inputs(batch_dev, cfg, dev))
+    calibrate_batchnorm(det.model, model_inputs(batch_dev, cfg, dev, training=False))
     conv_rec = Recorder(lidar_encoder, "sparse_conv")
     rb_rec = Recorder(lidar_encoder, "build_rulebooks")
     log("lidar cloud", points=batch["points_mask"].sum(1).tolist(), seconds=f"{cloud_s:.2f}")
@@ -499,16 +528,16 @@ def lidar_phases(dev, table) -> None:
     del conv_rec, rb_rec, rb
 
     # ---- heads and ROIs: kernels vs plain versions on the card ---------------
-    compare_heads("lidar ", det, cfg, model_inputs(batch_dev, cfg, dev), LIDAR_HEAD_REL_TOL_BF16)
+    compare_heads("lidar ", det, cfg, model_inputs(batch_dev, cfg, dev, training=False), LIDAR_HEAD_REL_TOL_BF16)
     del det
 
     # ---- small input: the card against the CPU -----------------------------
     tcfg = dataclasses.replace(tiny_model(with_camera=False), compute_dtype="float32")
     tbatch = lidar_batch(tcfg, 2, seed=13)
     det_cpu = Detector(tcfg, random_state_dict(tcfg, seed=12), device="cpu")
-    calibrate_batchnorm(det_cpu.model, model_inputs(tbatch, tcfg, "cpu"))
+    calibrate_batchnorm(det_cpu.model, model_inputs(tbatch, tcfg, "cpu", training=False))
     det_gpu = Detector(tcfg, det_cpu.model.state_dict(), device="cuda")
-    in_g, in_c = model_inputs(tbatch, tcfg, dev), model_inputs(tbatch, tcfg, "cpu")
+    in_g, in_c = model_inputs(tbatch, tcfg, dev, training=False), model_inputs(tbatch, tcfg, "cpu", training=False)
     if not torch.equal(in_g["voxel_coords"].cpu(), in_c["voxel_coords"]):
         raise RuntimeError("lidar tiny: the card puts points in other voxels than the CPU")
     torch.testing.assert_close(in_g["voxel_feats"].cpu(), in_c["voxel_feats"], rtol=1e-6, atol=1e-6)
@@ -536,20 +565,23 @@ def to_device(batch, dev):
     return out
 
 
-def train_run(phase, step_fn, student, want):
-    """One warm-up step (`step_fn()` returns the metrics), then the timed
-    steps with every launch count set to 0 just before and read just after;
-    each kernel in `want` must launch exactly that often per step. Checks
-    the loss terms and the parameter change."""
+def train_run(phase, step_fn, student, want, recorders=(), n_steps=TIMED_STEPS):
+    """One warm-up step (`step_fn()` returns the metrics) with `recorders`
+    on, then `n_steps` timed steps with every launch count set to 0 just
+    before and read just after; each kernel in `want` must launch exactly
+    that often per step. Checks the loss terms and the parameter change."""
     from unidistill_torch.kernels import build
     from unidistill_torch.training.steps import metrics_to_host
-    metrics_to_host(step_fn())
+    with contextlib.ExitStack() as stack:
+        for r in recorders:
+            stack.enter_context(r)
+        metrics_to_host(step_fn())
     before = [p.detach().clone() for p in student.parameters()]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
     times, host = [], []
-    for _ in range(TIMED_STEPS):
+    for _ in range(n_steps):
         t0 = time.perf_counter()
         host.append(metrics_to_host(step_fn()))  # the one read-back of a step
         times.append(time.perf_counter() - t0)
@@ -558,14 +590,14 @@ def train_run(phase, step_fn, student, want):
     change = max((p.detach() - b).abs().max().item() for p, b in zip(student.parameters(), before))
     del before
     terms = {k: v for k, v in host[-1].items() if not k.startswith("task_")}
-    log(phase, batch=BATCH, steps=TIMED_STEPS, s_per_step=[round(t, 4) for t in times],
+    log(phase, batch=BATCH, steps=n_steps, s_per_step=[round(t, 4) for t in times],
         frames_per_s=f"{BATCH * len(times) / sum(times):.3f}", peak_mem_gib=f"{peak_gib:.3f}",
         param_max_change=f"{change:.3e}", launches=json.dumps(launches, sort_keys=True),
         **{k: f"{v:.6g}" for k, v in sorted(terms.items())})
     for k, n in want.items():
-        if launches.get(k, 0) != n * TIMED_STEPS:
+        if launches.get(k, 0) != n * n_steps:
             raise RuntimeError(f"{phase}: kernel {k} launched {launches.get(k, 0)} times in "
-                               f"{TIMED_STEPS} steps, expected {n} a step")
+                               f"{n_steps} steps, expected {n} a step")
     for h in host:
         bad = [k for k, v in h.items() if not math.isfinite(v)]
         if bad:
@@ -596,7 +628,7 @@ def train_phases(dev, table) -> None:
     teacher = BEVFusionCenterHead(t_cfg)
     teacher.load_state_dict(random_state_dict(t_cfg, seed=10))
     teacher.to(dev).requires_grad_(False)
-    calibrate_batchnorm(teacher, steps.model_inputs(batch, t_cfg, dev))
+    calibrate_batchnorm(teacher, steps.model_inputs(batch, t_cfg, dev, training=False))
     student = BEVFusionCenterHead(s_cfg)
     student.load_state_dict(random_state_dict(s_cfg, seed=0))
     student.to(dev)
@@ -663,33 +695,267 @@ def train_phases(dev, table) -> None:
     tcfg = dataclasses.replace(tiny_model(with_lidar=False), compute_dtype="float32")
     boxes = train_batch(tcfg, tiny_model(with_camera=False), 2, seed=23)["gt_boxes"]
     tbatch = dict(small_batch(tcfg, 2, seed=3), gt_boxes=boxes)
-    sd = random_state_dict(tcfg, seed=2)
+    train_card_vs_cpu("train tiny", dev, tcfg, tbatch, random_state_dict(tcfg, seed=2), camera_exp().train)
+
+
+def train_card_vs_cpu(phase, dev, tcfg, tbatch, sd, train_cfg) -> None:
+    """One small float32 train step (BatchNorms tamed) on the CPU and on the
+    card from the same weights: loss, metrics and every gradient."""
+    from unidistill_torch.models.bevfusion import BEVFusionCenterHead
+    from unidistill_torch.training import steps
+    from unidistill_torch.training.train_state import TrainState, make_optimizer
     results = {}
     for label, device in (("cpu", torch.device("cpu")), ("card", dev)):
         model = BEVFusionCenterHead(tcfg)
         model.load_state_dict(sd)
         tame(model)
         model.to(device)
-        opt = make_optimizer(model, camera_exp().train)
+        opt = make_optimizer(model, train_cfg)
         metrics = steps.metrics_to_host(steps.train_step(TrainState(), tbatch, model, opt, tcfg))
         unclip = max(1.0, metrics["grad_norm"] / opt.grad_clip)  # .grad holds the clipped gradients
         results[label] = metrics, {k: (p.grad * unclip).cpu() for k, p in model.named_parameters()}
     (m_c, g_c), (m_g, g_g) = results["cpu"], results["card"]
     for k, v in m_c.items():
         if not math.isclose(m_g[k], v, rel_tol=TRAIN_TINY_LOSS_RTOL, abs_tol=1e-6):
-            raise RuntimeError(f"train tiny: metric {k} card {m_g[k]} vs CPU {v}")
+            raise RuntimeError(f"{phase}: metric {k} card {m_g[k]} vs CPU {v}")
     top = max(t.abs().max().item() for t in g_c.values())
     worst, worst_k = 0.0, None
     for k, ref in g_c.items():
         err = (g_g[k] - ref).abs().max().item() / max(ref.abs().max().item(), 1e-3 * top)
         if err > worst:
             worst, worst_k = err, k
-    log("train tiny", loss_cpu=f"{m_c['loss']:.6g}", loss_card=f"{m_g['loss']:.6g}",
+    log(phase, loss_cpu=f"{m_c['loss']:.6g}", loss_card=f"{m_g['loss']:.6g}",
         grad_norm_cpu=f"{m_c['grad_norm']:.6g}", grad_norm_card=f"{m_g['grad_norm']:.6g}",
         worst_grad_err_over_scale=f"{worst:.3e}", at=worst_k, tol=TRAIN_TINY_GRAD_TOL,
         metrics_rtol=TRAIN_TINY_LOSS_RTOL)
     if worst > TRAIN_TINY_GRAD_TOL:
-        raise RuntimeError(f"train tiny: gradient {worst_k} differs by {worst:.3e} of its scale")
+        raise RuntimeError(f"{phase}: gradient {worst_k} differs by {worst:.3e} of its scale")
+
+
+def backward_kernel_phases(table, dgrad_calls, wgrad_calls, launches) -> None:
+    """K4 as the input gradient and K6 on the tensors recorded from one
+    LiDAR train step, each call against its plain version in bf16 (as
+    recorded) and in f32; kernel / plain / library / bound ms summed over
+    the step's launches."""
+    from unidistill_torch.layers import lidar_encoder
+    from unidistill_torch.ops import sparse_conv
+    names = ["conv_input"]
+    for (down, *_), (stage, _) in zip(lidar_encoder.DOWN_CONVS, lidar_encoder.RES_STAGES):
+        names += [f"{stage}{ab}.conv{c}" for ab in "ab" for c in (1, 2)] + [down]
+    names = names[::-1]  # the backward runs the convs in reverse
+    if len(dgrad_calls) != SPARSE_CONV_DGRADS_PER_STEP or len(wgrad_calls) != SPARSE_CONVS_PER_REQUEST:
+        raise RuntimeError(f"{len(dgrad_calls)} dgrad and {len(wgrad_calls)} wgrad calls in one step")
+
+    def bound(nbytes, ops, dtype):
+        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+        return nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+
+    for kernel, calls, labels in (("K4 sparse_conv_dgrad", dgrad_calls, names[:-1]),
+                                  ("K6 sparse_conv_wgrad", wgrad_calls, names)):
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
+        worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+        for name, (args, _) in zip(labels, calls):
+            args = [t.detach() for t in args]  # the saved weight is part of the graph
+            dgrad = kernel.startswith("K4")
+            fn, plain = ((sparse_conv.sparse_conv_dgrad_cuda, sparse_conv.sparse_conv_dgrad_plain) if dgrad
+                         else (sparse_conv.sparse_conv_wgrad_cuda, sparse_conv.sparse_conv_wgrad_plain))
+            for dt in worst:
+                a = [t.to(dt) if t.is_floating_point() else t for t in args]
+                got, ref = fn(*a), plain(*a)
+                torch.cuda.synchronize()
+                scale = ref.float().abs().max().item()
+                tol = K4_DGRAD_TOL[dt] if dgrad else K6_TOL
+                torch.testing.assert_close(got.float(), ref.float(), rtol=tol[0], atol=tol[1] * scale,
+                                           msg=f"{kernel} {name} {dt}")
+                worst[dt] = max(worst[dt], max_err(got, ref)[0])
+            ms = cuda_ms(lambda: fn(*args))
+            plain_ms = cuda_ms(lambda: plain(*args), iters=3)
+            if dgrad:  # out[i] = Σ_k W[k]·g[nbr_t[i, k]]
+                g, nbr, w = args
+                K, cin, cout = w.shape
+                n_in, esize = nbr.shape[0], g.element_size()
+                src = torch.cat([g, g.new_zeros(1, cout)])
+                gath = src[torch.where(nbr < 0, g.shape[0], nbr).long().t()]  # [K, N_in, Cout]
+                wt = w.transpose(1, 2).contiguous()
+                out = torch.empty(n_in, cin, dtype=g.dtype, device=g.device)
+
+                def library():
+                    torch.mm(gath[0], wt[0], out=out)
+                    for k in range(1, K):
+                        out.addmm_(gath[k], wt[k])
+                nbytes = (g.numel() + w.numel() + n_in * cin) * esize + nbr.numel() * 4
+            else:  # dW[k] = Σ_o x[nbr[o, k]]ᵀ·g[o]
+                x, g, nbr = args
+                K, cin, cout = nbr.shape[1], x.shape[1], g.shape[1]
+                esize = x.element_size()
+                src = torch.cat([x, x.new_zeros(1, cin)])
+                gath = src[torch.where(nbr < 0, x.shape[0], nbr).long().t()].transpose(1, 2)  # [K, Cin, N]
+                out = torch.empty(K, cin, cout, dtype=g.dtype, device=g.device)
+
+                def library():
+                    for k in range(K):
+                        torch.mm(gath[k], g, out=out[k])
+                nbytes = (x.numel() + g.numel()) * esize + nbr.numel() * 4 + K * cin * cout * 4
+            library_ms = cuda_ms(library, iters=5)
+            del gath, src, out
+            pairs = int((nbr >= 0).sum().item())
+            bytes_ms, ops_ms = bound(nbytes, 2 * pairs * cin * cout, args[0].dtype)
+            log(f"{kernel} {name}", rows=nbr.shape[0], K=K, cin=cin, cout=cout, pairs=pairs,
+                ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+                bound_ms=f"{max(bytes_ms, ops_ms):.4f}")
+            for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
+                         ("bound_ms", max(bytes_ms, ops_ms)), ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+                tot[k] += v
+        bound_by = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
+        tol = K4_DGRAD_TOL if kernel.startswith("K4") else {dt: K6_TOL for dt in worst}
+        log(kernel, convs=len(calls), max_abs_err_bf16=f"{worst[torch.bfloat16]:.3e}",
+            max_abs_err_f32=f"{worst[torch.float32]:.3e}",
+            tol="; ".join(f"{dt}: rtol={r},atol={a}*max|ref|" for dt, (r, a) in tol.items()),
+            **{f"{k}_per_step": f"{v:.4f}" for k, v in tot.items()}, bound_by=bound_by)
+        key = "sparse_conv_dgrad" if kernel.startswith("K4") else "sparse_conv_wgrad"
+        table.append(dict(name=key, route="cuda", source="unidistill_torch/csrc/sparse_conv.cu",
+                          replaces="unidistill_tpu/ops/sparse_conv_pallas.py:279", launches=launches[key],
+                          max_abs_err=worst[torch.bfloat16], ms=tot["ms"], plain_ms=tot["plain_ms"],
+                          bound_ms=tot["bound_ms"], bound_by=bound_by, library_ms=tot["library_ms"]))
+
+
+def frozen_teacher(cfg, seed, batch, dev):
+    """A detector with seeded weights, BatchNorm calibrated on `batch`,
+    frozen in eval mode."""
+    from unidistill_torch.models.bevfusion import BEVFusionCenterHead
+    from unidistill_torch.serving.synthetic import calibrate_batchnorm, random_state_dict
+    from unidistill_torch.training.steps import model_inputs
+    teacher = BEVFusionCenterHead(cfg)
+    teacher.load_state_dict(random_state_dict(cfg, seed=seed))
+    teacher.to(dev).requires_grad_(False)
+    calibrate_batchnorm(teacher, model_inputs(batch, cfg, dev, training=False))
+    return teacher
+
+
+def student_model(cfg, seed, dev):
+    from unidistill_torch.models.bevfusion import BEVFusionCenterHead
+    from unidistill_torch.serving.synthetic import random_state_dict
+    model = BEVFusionCenterHead(cfg)
+    model.load_state_dict(random_state_dict(cfg, seed=seed))
+    return model.to(dev)
+
+
+def check_frozen(phase, teacher) -> None:
+    if teacher.training or any(p.grad is not None for p in teacher.parameters()):
+        raise RuntimeError(f"{phase}: the teacher was trained")
+
+
+def lidar_train_phases(dev, table) -> None:
+    """This slice's main path, the LiDAR detector's train step (K4 forward,
+    K4 as the input gradient, K6), then K4 dgrad and K6 against their plain
+    versions, camera->LiDAR distillation, and a tiny f32 LiDAR train step on
+    the card against the CPU."""
+    from unidistill_torch.configs.nuscenes import (
+        DISTILL_VARIANTS, camera_exp, distill_exp, lidar_exp, tiny_model)
+    from unidistill_torch.ops import sparse_conv
+    from unidistill_torch.serving.synthetic import random_state_dict, train_batch
+    from unidistill_torch.training import steps
+    from unidistill_torch.training.train_state import TrainState, make_optimizer
+
+    # ---- lidar train: the detector's train step at full width ---------------
+    exp = lidar_exp()
+    cfg = exp.model
+    t0 = time.time()
+    batch = to_device(train_batch(camera_exp().model, cfg, BATCH, seed=21), dev)
+    data_s = time.time() - t0
+    voxels = (steps.model_inputs(batch, cfg, dev, training=True)["voxel_coords"][..., 0] >= 0).sum(1).tolist()
+    log("lidar train data", frames=BATCH, points=batch["points_mask"].sum(1).tolist(), voxels=voxels,
+        max_voxels_train=cfg.caps.max_voxels_train,
+        gt_boxes=(batch["gt_boxes"].abs().sum(-1) > 0).sum(1).tolist(), seconds=f"{data_s:.2f}")
+    model = student_model(cfg, 30, dev)
+    opt = make_optimizer(model, exp.train)
+    state = TrainState()
+    dgrad_rec = Recorder(sparse_conv, "sparse_conv_dgrad_cuda")
+    wgrad_rec = Recorder(sparse_conv, "sparse_conv_wgrad_cuda")
+    launches = train_run("lidar train", lambda: steps.train_step(state, batch, model, opt, cfg), model,
+                         dict(sparse_conv_fwd=SPARSE_CONVS_PER_REQUEST, sparse_conv_dgrad=SPARSE_CONV_DGRADS_PER_STEP,
+                              sparse_conv_wgrad=SPARSE_CONVS_PER_REQUEST, bev_pool_fwd=0, bev_pool_bwd=0),
+                         recorders=(dgrad_rec, wgrad_rec))
+    del model, opt, state
+    torch.cuda.empty_cache()
+
+    # ---- K4 dgrad and K6 on the recorded step ---------------------------------
+    backward_kernel_phases(table, dgrad_rec.calls, wgrad_rec.calls, launches)
+    del dgrad_rec, wgrad_rec
+    torch.cuda.empty_cache()
+
+    # ---- distill camera -> lidar ------------------------------------------------
+    pair = ("camera", "lidar")
+    teacher = frozen_teacher(camera_exp().model, 0, batch, dev)
+    student = student_model(cfg, 30, dev)
+    opt = make_optimizer(student, distill_exp(*pair).train)
+    state = TrainState()
+    train_run("distill camera->lidar", lambda: steps.distill_train_step(
+        state, batch, student, teacher, opt, cfg, camera_exp().model, DISTILL_VARIANTS[pair]), student,
+        dict(bev_pool_fwd=1, bev_pool_bwd=0, sparse_conv_fwd=SPARSE_CONVS_PER_REQUEST,
+             sparse_conv_dgrad=SPARSE_CONV_DGRADS_PER_STEP, sparse_conv_wgrad=SPARSE_CONVS_PER_REQUEST))
+    check_frozen("distill camera->lidar", teacher)
+    del teacher, student, opt, state, batch
+    torch.cuda.empty_cache()
+
+    # ---- small input: a LiDAR train step on the card against the CPU -------
+    tcfg = dataclasses.replace(tiny_model(with_camera=False), compute_dtype="float32")
+    tbatch = train_batch(tcfg, tcfg, 2, seed=24)
+    train_card_vs_cpu("lidar train tiny", dev, tcfg, tbatch, random_state_dict(tcfg, seed=12), exp.train)
+
+
+def fusion_phases(dev) -> None:
+    """The fusion detector: predict, train, and the two distillation pairs
+    with the fusion teacher (one warm-up and one timed step each)."""
+    from unidistill_torch.configs.nuscenes import DISTILL_VARIANTS, camera_exp, distill_exp, fusion_exp, lidar_exp
+    from unidistill_torch.serving.predictor import Detector
+    from unidistill_torch.serving.synthetic import calibrate_batchnorm, random_state_dict, train_batch
+    from unidistill_torch.training import steps
+    from unidistill_torch.training.train_state import TrainState, make_optimizer
+
+    exp = fusion_exp()
+    cfg = exp.model
+    batch = to_device(train_batch(cfg, cfg, BATCH, seed=21), dev)
+
+    # ---- fusion predict -----------------------------------------------------
+    det = Detector(cfg, random_state_dict(cfg, seed=40), device="cuda")
+    calibrate_batchnorm(det.model, steps.model_inputs(batch, cfg, dev, training=False))
+    request = {k: batch[k] for k in ("points", "points_mask", "imgs", "mats")}
+    serve("fusion predict", det, cfg, request, [],
+          dict(bev_pool_fwd=TIMED_REQUESTS, sparse_conv_fwd=SPARSE_CONVS_PER_REQUEST * TIMED_REQUESTS,
+               rotated_iou_mask=TIMED_REQUESTS, nms_greedy_select=TIMED_REQUESTS))
+    teacher = det.model.requires_grad_(False)
+    del det
+
+    # ---- fusion train -------------------------------------------------------
+    model = student_model(cfg, 41, dev)
+    opt = make_optimizer(model, exp.train)
+    state = TrainState()
+    train_run("fusion train", lambda: steps.train_step(state, batch, model, opt, cfg), model,
+              dict(bev_pool_fwd=1, bev_pool_bwd=1, sparse_conv_fwd=SPARSE_CONVS_PER_REQUEST,
+                   sparse_conv_dgrad=SPARSE_CONV_DGRADS_PER_STEP, sparse_conv_wgrad=SPARSE_CONVS_PER_REQUEST),
+              n_steps=1)
+    del model, opt, state
+    torch.cuda.empty_cache()
+
+    # ---- distill fusion -> lidar and fusion -> camera ------------------------
+    for student_exp, want in (
+            (lidar_exp(), dict(bev_pool_fwd=1, bev_pool_bwd=0, sparse_conv_fwd=2 * SPARSE_CONVS_PER_REQUEST,
+                               sparse_conv_dgrad=SPARSE_CONV_DGRADS_PER_STEP,
+                               sparse_conv_wgrad=SPARSE_CONVS_PER_REQUEST)),
+            (camera_exp(), dict(bev_pool_fwd=2, bev_pool_bwd=1, sparse_conv_fwd=SPARSE_CONVS_PER_REQUEST,
+                                sparse_conv_dgrad=0, sparse_conv_wgrad=0))):
+        s_cfg = student_exp.model
+        pair = ("fusion", "lidar" if s_cfg.with_lidar else "camera")
+        phase = f"distill fusion->{pair[1]}"
+        student = student_model(s_cfg, 30 if s_cfg.with_lidar else 0, dev)
+        opt = make_optimizer(student, distill_exp(*pair).train)
+        state = TrainState()
+        train_run(phase, lambda: steps.distill_train_step(
+            state, batch, student, teacher, opt, s_cfg, cfg, DISTILL_VARIANTS[pair]), student, want, n_steps=1)
+        check_frozen(phase, teacher)
+        del student, opt, state
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -728,6 +994,10 @@ def main() -> int:
     lidar_phases(dev, table)
     torch.cuda.empty_cache()
     train_phases(dev, table)
+    torch.cuda.empty_cache()
+    lidar_train_phases(dev, table)
+    torch.cuda.empty_cache()
+    fusion_phases(dev)
 
     log("done", seconds=f"{time.time() - t_start:.1f}")
     print(json.dumps({"kernels": table}))

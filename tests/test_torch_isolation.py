@@ -62,9 +62,13 @@ def test_no_source_imports_jax(name):
     lambda m: m.distill_exp("camera", "lidar"),
     lambda m: m.TrainConfig(),
     lambda m: m.DistillConfig(),
+    lambda m: m.fusion_exp(),
+    lambda m: m.fusion_exp().model,
+    lambda m: m.distill_exp("fusion", "lidar"),
 ], ids=["camera_exp", "camera_model", "tiny_camera", "tiny", "default_model", "lidar_exp",
         "lidar_model", "tiny_lidar", "distill_lidar_camera", "distill_fusion_camera",
-        "distill_camera_lidar", "train", "distill"])
+        "distill_camera_lidar", "train", "distill", "fusion_exp", "fusion_model",
+        "distill_fusion_lidar"])
 def test_config_copy_matches_jax(make):
     ours, ref = make(pcfg), make(jcfg)
     assert dataclasses.asdict(ours) == dataclasses.asdict(ref)

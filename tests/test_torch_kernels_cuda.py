@@ -15,12 +15,22 @@ by an ulp); K2 mask bits and K3 keep sets exactly (no IoU within 1e-4 of
 the threshold in these inputs); K4 in float32 rtol/atol 1e-4 (up to 27·128
 products summed in another order), in bfloat16 rtol 1e-2 (kernel and plain
 version both sum in f32 and round once; the other order may flip that
-rounding by one bf16 ulp, at most 2^-7 of the value).
+rounding by one bf16 ulp, at most 2^-7 of the value). The sparse conv's
+backward: K6 (dW) against its plain version at 1e-4 of max |ref| in float32
+and in bfloat16 (bf16 products are exact in f32, so only the summation order
+differs; empty tiles and taps give exact zeros); K4 as the input gradient on
+strided maps as K4 forward; `SparseConv`'s gradients against autograd of the
+plain version (f32 rtol/atol 1e-4 of the scale; bf16 2e-2 of the scale: dfeat
+rounds once to bf16, dW is summed over bf16-rounded g in another order)
+and against float64 central differences of the conv (f32, rtol 1e-3: the
+conv is linear, so the difference is exact up to float64 round-off; the
+kernels sum in float32).
 """
 import numpy as np
 import pytest
 import torch
 
+from unidistill_torch.layers.lidar_encoder import DOWN_CONVS
 from unidistill_torch.ops import bev_pool, nms, sparse_conv
 
 THR = 0.2
@@ -213,3 +223,141 @@ def test_sparse_conv_kernel_on_rulebooks(cuda_device):
     w = (torch.randn(27, 16, 32, generator=g) * 0.1).to(cuda_device)
     got = sparse_conv.sparse_conv(st.features, nbr, w)
     torch.testing.assert_close(got, sparse_conv.sparse_conv_plain(st.features, nbr, w), rtol=1e-4, atol=1e-4)
+
+
+# (K, Cin, Cout) of the encoder's sparse convs: conv_input, the four residual
+# widths, down2, down3, down4, conv_out
+ENCODER_CONVS = [(27, 5, 16), (27, 16, 16), (27, 32, 32), (27, 64, 64), (27, 128, 128),
+                 (27, 16, 32), (27, 32, 64), (27, 64, 128), (3, 128, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("K,cin,cout", ENCODER_CONVS)
+def test_sparse_conv_wgrad_kernel_matches_plain(cuda_device, dtype, K, cin, cout):
+    """K6 at each conv shape; rows 64-127 have no neighbour (empty tiles)
+    and tap 1 none anywhere (an all -1 tap gives an exact 0)."""
+    from unidistill_torch.kernels import build
+    feats, nbr, _, _ = _sparse_inputs(cuda_device, dtype, 3001, 2777, K, cin, cout, seed=cin + cout + K)
+    nbr[:, 1] = -1
+    g = torch.randn(2777, cout, generator=torch.Generator().manual_seed(K)).to(cuda_device, dtype)
+    before = build.LAUNCHES["sparse_conv_wgrad"]
+    got = sparse_conv.sparse_conv_wgrad_cuda(feats, g, nbr)
+    assert build.LAUNCHES["sparse_conv_wgrad"] == before + 1
+    ref = sparse_conv.sparse_conv_wgrad_plain(feats, g, nbr)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (K, cin, cout)
+    assert (got[1] == 0).all()
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
+    assert torch.equal(got, sparse_conv.sparse_conv_wgrad_cuda(feats, g, nbr))  # deterministic
+
+
+@pytest.mark.cuda
+def test_sparse_conv_wgrad_kernel_is_deterministic(cuda_device):
+    """Two K6 runs over 300 000 rows (64 chunks per tap) are bit-equal."""
+    feats, nbr, _, _ = _sparse_inputs(cuda_device, torch.bfloat16, 320000, 300000, 27, 16, 16, seed=5)
+    g = torch.randn(300000, 16, generator=torch.Generator().manual_seed(6)).to(cuda_device, torch.bfloat16)
+    a = sparse_conv.sparse_conv_wgrad_cuda(feats, g, nbr)
+    b = sparse_conv.sparse_conv_wgrad_cuda(feats, g, nbr)
+    assert torch.equal(a, b)
+    ref = sparse_conv.sparse_conv_wgrad_plain(feats, g, nbr)
+    torch.testing.assert_close(a, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
+
+
+def _stage(device, shape, n, seed, C):
+    """n random sites of a (D, H, W) grid with C random features, on the card."""
+    g = torch.Generator().manual_seed(seed)
+    D, H, W = shape
+    keys = torch.unique(torch.randint(0, D * H * W, (n,), generator=g))
+    col = keys // D
+    coords = torch.stack([keys % D, col // W, col % W], 1).to(torch.int32)
+    st = sparse_conv.from_voxels(torch.randn(1, len(keys), C, generator=g), coords[None], shape)
+    return sparse_conv.SparseTensor(st.features.to(device), st.coords.to(device), st.keys.to(device), shape, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("conv", DOWN_CONVS, ids=[c[0] for c in DOWN_CONVS])
+def test_sparse_conv_dgrad_on_strided_maps(cuda_device, dtype, conv):
+    """K4 over the transposed map of each strided conv of the encoder (input
+    sites no output reads get 0) against its plain version."""
+    from unidistill_torch.kernels import build
+    _, cin, cout, k, s, p = conv
+    shape = (5, 30, 30) if k == (3, 1, 1) else (11, 30, 30)
+    st = _stage(cuda_device, shape, 4000, seed=cin, C=cin)
+    out_shape = tuple((d + 2 * pd - kd) // sd + 1 for d, kd, sd, pd in zip(shape, k, s, p))
+    out = sparse_conv.downsample_sites(st, k, s, p, out_shape)
+    nbr = sparse_conv.down_rules(st, out, k, s, p)
+    nbr_t = sparse_conv.transpose_rules(nbr, st.keys.numel())
+    gen = torch.Generator().manual_seed(cout)
+    g = torch.randn(nbr.shape[0], cout, generator=gen).to(cuda_device, dtype)
+    w = (torch.randn(nbr.shape[1], cin, cout, generator=gen) * 0.1).to(cuda_device, dtype)
+    before = build.LAUNCHES["sparse_conv_dgrad"]
+    got = sparse_conv.sparse_conv_dgrad_cuda(g, nbr_t, w)
+    assert build.LAUNCHES["sparse_conv_dgrad"] == before + 1
+    ref = sparse_conv.sparse_conv_dgrad_plain(g, nbr_t, w)
+    torch.cuda.synchronize()
+    assert got.shape == (st.keys.numel(), cin) and got.dtype == dtype
+    unread = (nbr_t < 0).all(1)
+    assert (got[unread] == 0).all()
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-5)
+    torch.testing.assert_close(got.float(), ref.float(), **tol)
+
+
+def _conv_case(device, dtype, n, cin, cout, seed):
+    st = _stage(device, (9, 24, 24), n, seed, cin)
+    nbr = sparse_conv.subm_rules(st)
+    gen = torch.Generator().manual_seed(seed + 1)
+    w = (torch.randn(27, cin, cout, generator=gen) * (1.0 / (27 * cin)) ** 0.5).to(device)
+    b = torch.randn(cout, generator=gen).to(device)
+    g = torch.randn(nbr.shape[0], cout, generator=gen).to(device)
+    return st.features.to(dtype), nbr, w, b, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_sparse_conv_function_gradients_match_plain(cuda_device, dtype):
+    """`sparse_conv` with gradients on the card (K4, K4 dgrad, K6) against
+    autograd of the plain version on the same inputs; the f32 masters are
+    cast to the compute dtype at the call, as the encoder does."""
+    from unidistill_torch.kernels import build
+    x, nbr, w, b, g = _conv_case(cuda_device, dtype, 3000, 32, 64, seed=7)
+    grads = []
+    for fn in (sparse_conv.sparse_conv, sparse_conv.sparse_conv_plain):
+        xx = x.detach().clone().requires_grad_(True)
+        ww, bb = w.detach().clone().requires_grad_(True), b.detach().clone().requires_grad_(True)
+        before = dict(build.LAUNCHES)
+        out = fn(xx, nbr, ww.to(dtype), bb.to(dtype))
+        out.backward(g.to(dtype))
+        grads.append((xx.grad, ww.grad, bb.grad))
+        if fn is sparse_conv.sparse_conv:
+            for name in ("sparse_conv_fwd", "sparse_conv_dgrad", "sparse_conv_wgrad"):
+                assert build.LAUNCHES[name] == before.get(name, 0) + 1, name
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, ref, name in zip(grads[0], grads[1], ("features", "weight", "bias")):
+        scale = ref.float().abs().max().item()
+        assert scale > 0, name
+        torch.testing.assert_close(got.float() / scale, ref.float() / scale, rtol=tol, atol=tol, msg=name)
+
+
+@pytest.mark.cuda
+def test_sparse_conv_function_against_finite_differences(cuda_device):
+    """<gradients, v> against the float64 central difference of <g, plain
+    forward> along random directions v of the features, weight and bias."""
+    x, nbr, w, b, g = _conv_case(cuda_device, torch.float32, 600, 16, 16, seed=11)
+    xx, ww, bb = (t.detach().clone().requires_grad_(True) for t in (x, w, b))
+    sparse_conv.sparse_conv(xx, nbr, ww, bb).backward(g)
+    idx = torch.where(nbr < 0, x.shape[0], nbr).long()
+
+    def f(a, c, d):  # <g, the conv> in float64
+        az = torch.cat([a, a.new_zeros(1, a.shape[1])])
+        return (g.double() * (sum(az[idx[:, k]] @ c[k] for k in range(nbr.shape[1])) + d)).sum()
+
+    gen = torch.Generator().manual_seed(12)
+    eps = 1e-3
+    for _ in range(3):
+        v = [torch.randn(t.shape, generator=gen, dtype=torch.float64).to(cuda_device) for t in (x, w, b)]
+        p64 = [t.detach().double() for t in (x, w, b)]
+        fd = (f(*[p + eps * d for p, d in zip(p64, v)]) - f(*[p - eps * d for p, d in zip(p64, v)])) / (2 * eps)
+        an = sum((t.grad.double() * d).sum() for t, d in zip((xx, ww, bb), v))
+        torch.testing.assert_close(an, fd, rtol=1e-3, atol=1e-6)

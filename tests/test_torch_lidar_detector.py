@@ -109,7 +109,7 @@ def port_model():
 
 def test_no_jax_stage_cap_binds():
     _, pcfg, _, _, _, batch = case()
-    kw = model_inputs(batch, pcfg, "cpu")
+    kw = model_inputs(batch, pcfg, "cpu", training=False)
     rb = build_rulebooks(kw["voxel_feats"], kw["voxel_coords"], stage_shapes(pcfg.grid_size))
     sites = [torch.bincount(st.coords[:, 0], minlength=BATCH).max().item() for st in rb.sites]
     assert sites[0] < RAISED_CAPS["s0_slot_cap"]
@@ -122,7 +122,7 @@ def test_forward_matches_jax():
     _, pcfg, _, _, _, batch = case()
     ref, _ = jax_outputs()
     with torch.no_grad():
-        out = port_model()(**model_inputs(batch, pcfg, "cpu"))
+        out = port_model()(**model_inputs(batch, pcfg, "cpu", training=False))
     bev = ref["model_output"]
     assert np.abs(bev).max() > 1e-2
     np.testing.assert_allclose(nhwc(out["model_output"]), bev, rtol=1e-4,
@@ -159,7 +159,7 @@ def test_detector_predict_matches_jax(mode):
     _, ref = jax_outputs()
     det = Detector(pcfg, port_sd, device="cpu")
     if mode == "host_voxels":
-        kw = model_inputs(batch, pcfg, "cpu")
+        kw = model_inputs(batch, pcfg, "cpu", training=False)
         batch = {k: v.numpy() for k, v in kw.items()}
     _assert_rois_equal(det.predict(batch), ref)
 
@@ -189,6 +189,23 @@ def test_detector_rejects_wrong_lidar_batches():
                          voxel_coords=np.zeros((2, 8, 3), np.float32)))
 
 
-def test_fusion_is_not_ported():
-    with pytest.raises(NotImplementedError, match="fusion"):
-        BEVFusionCenterHead(tiny_model())
+def test_fusion_model_builds_both_encoders_and_fuses():
+    """With both modalities the model holds both encoders and the fusion
+    encoder, and its `model_output` is the fused [B, 256, ny, nx] map."""
+    cfg = dataclasses.replace(tiny_model(), compute_dtype="float32")
+    model = BEVFusionCenterHead(cfg).eval()
+    assert {"lidar_encoder", "camera_encoder", "fusion_encoder"} <= dict(model.named_children()).keys()
+    _, _, _, _, port_sd, batch = case()
+    lidar_sd = {k: v for k, v in port_sd.items() if k.startswith("lidar_encoder.")}
+    model.load_state_dict(lidar_sd, strict=False)
+    from tests.test_torch_camera_detector import camera_batch
+    kw = model_inputs(dict(batch, **camera_batch(cfg, BATCH, seed=3)), cfg, "cpu", training=False)
+    calls = []
+    model.fusion_encoder.register_forward_hook(lambda m, args, out: calls.append((args, out)))
+    with torch.no_grad():
+        out = model(**kw)
+    (lidar_map, camera_map), fused = calls[0]
+    assert lidar_map.shape == camera_map.shape == (BATCH, 256, 10, 10)
+    with torch.no_grad():
+        assert torch.equal(lidar_map, port_model()(**model_inputs(batch, case()[1], "cpu", training=False))["model_output"])
+    assert torch.equal(out["model_output"], fused) and fused.shape == (BATCH, 256, 10, 10)

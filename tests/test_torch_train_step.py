@@ -87,12 +87,17 @@ def case():
     return jcfg, pcfg, params, stats, batch
 
 
-def jax_params(jcfg, batch, seed):
-    """Seeded JAX parameter and statistics trees of the model of `jcfg`;
-    the head's output layer is scaled to logits of a few units, and the
-    AWL parameters lie near their initial 1."""
+def jax_shapes(jcfg, batch):
+    """Shapes of the JAX model's `init` trees (`jax.eval_shape`)."""
     kw = jax_steps.model_inputs(jax.tree.map(jnp.asarray, batch), jcfg, training=False)
-    shapes = jax.eval_shape(lambda: JaxModel(jcfg).init(jax.random.PRNGKey(0), **kw, train=False))
+    return jax.eval_shape(lambda: JaxModel(jcfg).init(jax.random.PRNGKey(0), **kw, train=False))
+
+
+def jax_params(jcfg, batch, seed, shapes=None):
+    """Seeded JAX parameter and statistics trees of the model of `jcfg`
+    (of `shapes`, when given); the head's output layer is scaled to logits
+    of a few units, and the AWL parameters lie near their initial 1."""
+    shapes = shapes or jax_shapes(jcfg, batch)
     rng = np.random.RandomState(seed)
     params, stats = randomize(shapes["params"], rng), randomize(shapes["batch_stats"], rng)
     params["det_head"]["out_kernel"] = params["det_head"]["out_kernel"] * np.float32(0.05)
@@ -153,10 +158,9 @@ def port_step():
     return model, before, metrics_to_host(metrics), grads, state
 
 
-def test_loss_and_metrics_match_jax():
-    _, _, ref_metrics, ref_grads = jax_step()
-    _, _, metrics, _, state = port_step()
-    assert state.step == 1
+def check_metrics(metrics, ref_metrics, ref_grads):
+    """Loss and every metric rtol 1e-4; the global gradient norm too, and
+    the clip acts."""
     for k, v in ref_metrics.items():
         np.testing.assert_allclose(metrics[k], float(v), rtol=1e-4, atol=1e-6, err_msg=k)
     assert metrics["loss"] > 0 and sum(metrics[f"task_{t}/num_positive"] for t in range(6)) > 0
@@ -165,11 +169,8 @@ def test_loss_and_metrics_match_jax():
     assert ref_norm > CLIP  # the clip acts
 
 
-def test_gradients_match_jax():
-    _, pcfg, _, _, _ = case()
-    _, _, _, ref_grads = jax_step()
-    _, _, _, grads, _ = port_step()
-    ref = state_dict_from_jax(ref_grads, {}, pcfg)
+def check_gradients(grads, ref):
+    """Every gradient within 2e-3 of its scale; `ref` in the port's names."""
     assert set(ref) == set(grads)
     scales = grad_scales(ref)
     for k, r in ref.items():
@@ -179,13 +180,9 @@ def test_gradients_match_jax():
     assert np.abs(ref["det_head.out_conv.weight"].numpy()).max() > 0
 
 
-def test_batch_stats_match_jax():
+def check_batch_stats(model, before, ref):
     """Every BatchNorm moved by its own momentum towards the biased batch
-    variance (ResNet and head flax 0.9, SECONDFPN and BEV backbone 0.99)."""
-    _, pcfg, params, stats, _ = case()
-    ref_params, ref_stats, _, _ = jax_step()
-    model, before, _, _, _ = port_step()
-    ref = state_dict_from_jax(ref_params, ref_stats, pcfg)
+    variance, as the JAX step's statistics."""
     got = model.state_dict()
     n = 0
     for k, r in ref.items():
@@ -196,23 +193,51 @@ def test_batch_stats_match_jax():
     assert n == 2 * len([m for m in model.modules() if isinstance(m, nn.modules.batchnorm._BatchNorm)])
 
 
-def test_one_step_parameters_match_jax():
-    _, pcfg, _, _, _ = case()
-    ref_params, _, _, ref_grads = jax_step()
-    model, before, _, _, _ = port_step()
-    new_ref = state_dict_from_jax(ref_params, {}, pcfg)
-    g_ref = state_dict_from_jax(ref_grads, {}, pcfg)
+def check_one_step(model, before, new_ref, g_ref, lr, min_moved=0.75):
+    """The one-step parameter change (see the module docstring); at least
+    `min_moved` of the tensors took an Adam step of lr/2 or more."""
     scales = grad_scales(g_ref)
     moved = 0
     for k, p in model.named_parameters():
         d_got = (p.detach() - before[k]).numpy()
         d_ref = (new_ref[k] - before[k]).numpy()
-        moved += np.abs(d_ref).max() > 0.5 * LR
+        moved += np.abs(d_ref).max() > 0.5 * lr
         big = np.abs(g_ref[k].numpy()) > 1e-3 * scales[k]
         err = np.abs(d_got - d_ref)
-        assert err[big].max(initial=0) <= 1e-2 * LR, (k, err[big].max())
-        assert err.max() <= 2 * LR * (1 + 1e-3), (k, err.max())
-    assert moved > 0.75 * len(g_ref)  # most tensors took an Adam step (some true gradients are 0)
+        assert err[big].max(initial=0) <= 1e-2 * lr, (k, err[big].max())
+        assert err.max() <= 2 * lr * (1 + 1e-3), (k, err.max())
+    assert moved > min_moved * len(g_ref)  # most tensors took an Adam step (some true gradients are 0)
+
+
+def test_loss_and_metrics_match_jax():
+    _, _, ref_metrics, ref_grads = jax_step()
+    _, _, metrics, _, state = port_step()
+    assert state.step == 1
+    check_metrics(metrics, ref_metrics, ref_grads)
+
+
+def test_gradients_match_jax():
+    _, pcfg, _, _, _ = case()
+    _, _, _, ref_grads = jax_step()
+    _, _, _, grads, _ = port_step()
+    check_gradients(grads, state_dict_from_jax(ref_grads, {}, pcfg))
+
+
+def test_batch_stats_match_jax():
+    """Every BatchNorm moved by its own momentum towards the biased batch
+    variance (ResNet and head flax 0.9, SECONDFPN and BEV backbone 0.99)."""
+    _, pcfg, _, _, _ = case()
+    ref_params, ref_stats, _, _ = jax_step()
+    model, before, _, _, _ = port_step()
+    check_batch_stats(model, before, state_dict_from_jax(ref_params, ref_stats, pcfg))
+
+
+def test_one_step_parameters_match_jax():
+    _, pcfg, _, _, _ = case()
+    ref_params, _, _, ref_grads = jax_step()
+    model, before, _, _, _ = port_step()
+    check_one_step(model, before, state_dict_from_jax(ref_params, {}, pcfg),
+                   state_dict_from_jax(ref_grads, {}, pcfg), LR)
 
 
 # ---------------------------------------------------------------------------
@@ -263,15 +288,15 @@ def test_optimizer_matches_optax_over_three_steps():
 # ---------------------------------------------------------------------------
 
 FLAX_MOMENTUM = {"img_backbone": 0.9, "det_head": 0.9, "img_neck": 0.99, "bev_encoder": 0.99,
-                 "lidar_encoder": 0.99}
+                 "lidar_encoder": 0.99, "fusion_encoder": 0.9}
 
 
-@pytest.mark.parametrize("modality", ["camera", "lidar"])
+@pytest.mark.parametrize("modality", ["camera", "lidar", "fusion"])
 def test_batchnorm_momenta_are_the_jax_modules(modality):
     """Every BatchNorm carries the flax momentum of the JAX module it
     mirrors (torch's momentum = 1 − flax's), and BN calibration puts it
     back."""
-    cfg = tiny_model(with_lidar=modality == "lidar", with_camera=modality == "camera")
+    cfg = tiny_model(with_lidar=modality != "camera", with_camera=modality != "lidar")
     model = BEVFusionCenterHead(cfg)
     model.load_state_dict(random_state_dict(cfg, seed=0))
 
@@ -283,11 +308,12 @@ def test_batchnorm_momenta_are_the_jax_modules(modality):
             assert m.momentum == pytest.approx(1 - FLAX_MOMENTUM[key], abs=1e-12), name
 
     check()
-    if modality == "camera":
-        batch = camera_batch(cfg, 2, 1)
-    else:
-        batch = lidar_batch(cfg, 1, 2)
-    calibrate_batchnorm(model, model_inputs(batch, cfg, "cpu"))
+    batch = {}
+    if cfg.with_camera:
+        batch.update(camera_batch(cfg, 2, 1))
+    if cfg.with_lidar:
+        batch.update(lidar_batch(cfg, 2, 2))
+    calibrate_batchnorm(model, model_inputs(batch, cfg, "cpu", training=False))
     check()
 
 
@@ -356,8 +382,8 @@ def test_parameters_are_float32_masters():
                              for k, v in sd.items()})
     batch = camera_batch(cfg, 2, 1)
     with torch.no_grad():
-        a = model.eval()(**model_inputs(batch, cfg, "cpu"))
-        b = rounded.eval()(**model_inputs(batch, cfg, "cpu"))
+        a = model.eval()(**model_inputs(batch, cfg, "cpu", training=False))
+        b = rounded.eval()(**model_inputs(batch, cfg, "cpu", training=False))
     for tid, heads in enumerate(a["multi_head_features"]):
         for name, t in heads.items():
             assert torch.equal(t, b["multi_head_features"][tid][name]), (tid, name)

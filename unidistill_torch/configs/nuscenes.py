@@ -291,6 +291,11 @@ def camera_exp() -> ExpConfig:
     )
 
 
+def fusion_exp() -> ExpConfig:
+    """The LiDAR + camera fusion CenterHead experiment (every default)."""
+    return ExpConfig(exp_name="BEVFusion_nuscenes_centerhead_fusion_exp")
+
+
 def distill_exp(teacher: str, student: str) -> ExpConfig:
     """A distillation experiment: the student's experiment at lr 2e-4 with
     the pair's weights from `DISTILL_VARIANTS`."""

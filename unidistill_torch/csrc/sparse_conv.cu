@@ -1,5 +1,6 @@
 // K4 sparse_conv_fwd: sparse 3D convolution over an output-stationary
-// neighbour map (forward), for every sparse conv of the LiDAR encoder.
+// neighbour map, for every sparse conv of the LiDAR encoder; in training also
+// its input gradient. K6 sparse_conv_wgrad: the weight gradient.
 //
 // Replaces the Pallas key-match kernel `_kernel` / `_subm_fwd_impl` of the
 // JAX package (unidistill_tpu/ops/sparse_conv_pallas.py:128,214), which
@@ -35,7 +36,34 @@
 // for every tap that has any neighbour in the tile, so at the wide stages it
 // is far from the tensor-core bound; mma/wgmma tiles and TMA are later work.
 //
-// The launch allocates nothing and runs on the caller's stream.
+// The input gradient of a conv (the first half of the JAX custom VJP
+// `_subm_bwd`, sparse_conv_pallas.py:279-286, which re-runs the Pallas kernel
+// with the taps reversed and W transposed) is this same kernel over the
+// transposed, input-stationary map nbr_t[i, k] = o (nbr[o, k] = i) with
+// W[k]^T: tiles are then input rows, and a tap no input of the tile is read
+// at is skipped as above.
+//
+// K6 sparse_conv_wgrad replaces the second half of `_subm_bwd` (:287-317,
+// dW[k] = X_k^T g over the rows gathered at tap k):
+//
+//   dW[k, :, :] = sum_o feats[nbr[o, k], :]^T g[o, :]     (nbr < 0: no term)
+//
+// feats [n_in, cin] and g [n_out, cout] in one dtype, dW [K, cin, cout] f32.
+//   * one block per (chunk of output rows, tap); it walks its chunk 32 rows
+//     at a time, skips a 32-row tile with no neighbour at its tap (a
+//     block-wide OR), gathers the tile's feature rows and loads its g rows
+//     with 16-byte loads into shared memory as f32, and adds their outer
+//     products into a cin x cout f32 tile held in registers (4 output
+//     channels x 1-16 input channels a thread; with fewer than 256 threads'
+//     worth of tile, groups of threads take alternate rows and are summed in
+//     group order at the end);
+//   * each block writes its chunk's partial tile; a second kernel adds the
+//     chunks in chunk order. No float atomics: the result is deterministic.
+// What bounds it: the same pairs as the forward, a cin x cout outer product
+// each, on the CUDA cores in f32 (tensor-core tiles are later work); at 16
+// and 32 channels the gathered rows and the map (bytes) bound it.
+//
+// The launches allocate nothing and run on the caller's stream.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -208,6 +236,168 @@ int launch(const void* feats, const int* nbr, const void* w, const float* bias,
   return (int)cudaGetLastError();
 }
 
+constexpr int kWRows = 32;  // output rows a K6 block stages per step
+
+template <typename T, int CIN, int COUT>
+__global__ void __launch_bounds__(kThreads)
+    sparse_conv_wgrad_kernel(const T* __restrict__ feats,
+                             const T* __restrict__ g,
+                             const int* __restrict__ nbr,
+                             float* __restrict__ partial, int n_in,
+                             int n_out, int K, int rows_per_chunk) {
+  constexpr int kCols = COUT / 4;  // threads along cout, 4 channels each
+  constexpr int kTileThreads = CIN * kCols < kThreads ? CIN * kCols : kThreads;
+  constexpr int kGroups = kThreads / kTileThreads;    // row groups
+  constexpr int kCiPer = CIN * kCols / kTileThreads;  // cin rows a thread
+  constexpr int kVec = 16 / sizeof(T);
+  static_assert(kGroups * kTileThreads == kThreads && kCiPer >= 1, "tile");
+  static_assert(kGroups == 1 || kCiPer == 1, "groups");
+
+  __shared__ int s_src[kWRows];
+  __shared__ float s_x[kWRows][CIN];
+  __shared__ __align__(16) float s_g[kWRows][COUT];
+  __shared__ __align__(16) float s_red[kGroups > 1 ? kThreads * 4 : 4];
+
+  const int tid = threadIdx.x;
+  const int grp = tid / kTileThreads;
+  const int t = tid - grp * kTileThreads;
+  const int tx = t % kCols;
+  const int ty = t / kCols;
+  const int k = blockIdx.y;
+  const long long r0 = (long long)blockIdx.x * rows_per_chunk;
+  const long long r1 = r0 + rows_per_chunk < n_out ? r0 + rows_per_chunk : n_out;
+
+  float acc[kCiPer][4];
+#pragma unroll
+  for (int c = 0; c < kCiPer; ++c)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[c][j] = 0.f;
+
+  for (long long base = r0; base < r1; base += kWRows) {
+    int mine = 0;
+    if (tid < kWRows) {
+      int src = -1;
+      if (base + tid < r1) {
+        src = nbr[(base + tid) * K + k];
+        if (src >= n_in) src = -1;
+      }
+      s_src[tid] = src;
+      mine = src >= 0;
+    }
+    if (!__syncthreads_or(mine)) continue;
+    for (int i = tid; i < kWRows * (CIN / kVec); i += kThreads) {
+      const int r = i / (CIN / kVec);
+      const int part = i - r * (CIN / kVec);
+      const int src = s_src[r];
+      float v[kVec];
+      if (src >= 0) {
+        load16(feats + (long long)src * CIN + part * kVec, v);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) v[j] = 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) s_x[r][part * kVec + j] = v[j];
+    }
+    for (int i = tid; i < kWRows * (COUT / kVec); i += kThreads) {
+      const int r = i / (COUT / kVec);
+      const int part = i - r * (COUT / kVec);
+      float v[kVec];
+      if (s_src[r] >= 0) {  // then base + r < r1
+        load16(g + (base + r) * COUT + part * kVec, v);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) v[j] = 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) s_g[r][part * kVec + j] = v[j];
+    }
+    __syncthreads();
+    for (int r = grp; r < kWRows; r += kGroups) {
+      const float4 gv = *reinterpret_cast<const float4*>(&s_g[r][tx * 4]);
+#pragma unroll
+      for (int c = 0; c < kCiPer; ++c) {
+        const float xv = s_x[r][ty * kCiPer + c];
+        acc[c][0] = fmaf(xv, gv.x, acc[c][0]);
+        acc[c][1] = fmaf(xv, gv.y, acc[c][1]);
+        acc[c][2] = fmaf(xv, gv.z, acc[c][2]);
+        acc[c][3] = fmaf(xv, gv.w, acc[c][3]);
+      }
+    }
+    __syncthreads();
+  }
+
+  float* out = partial + ((long long)blockIdx.x * K + k) * CIN * COUT;
+  if constexpr (kGroups == 1) {
+#pragma unroll
+    for (int c = 0; c < kCiPer; ++c) store4(out + (ty * kCiPer + c) * COUT + tx * 4, acc[c]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s_red[tid * 4 + j] = acc[0][j];
+    __syncthreads();
+    if (grp != 0) return;
+    for (int q = 1; q < kGroups; ++q)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[0][j] += s_red[(q * kTileThreads + t) * 4 + j];
+    store4(out + ty * COUT + tx * 4, acc[0]);
+  }
+}
+
+// dw[i] = sum over the chunks, in chunk order, of partial[chunk][i]
+__global__ void sparse_conv_wgrad_reduce_kernel(const float* __restrict__ partial,
+                                                float* __restrict__ dw, int chunks,
+                                                long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int c = 0; c < chunks; ++c) s += partial[(long long)c * n + i];
+  dw[i] = s;
+}
+
+template <typename T, int CIN>
+int launch_wgrad_cin(const void* feats, const void* g, const int* nbr, float* partial,
+                     int n_in, int n_out, int K, int cout, int chunks,
+                     int rows_per_chunk, cudaStream_t stream) {
+  const dim3 grid(chunks, K);
+  const T* f = static_cast<const T*>(feats);
+  const T* gt = static_cast<const T*>(g);
+  switch (cout) {
+    case 16:
+      sparse_conv_wgrad_kernel<T, CIN, 16><<<grid, kThreads, 0, stream>>>(f, gt, nbr, partial, n_in, n_out, K, rows_per_chunk);
+      break;
+    case 32:
+      sparse_conv_wgrad_kernel<T, CIN, 32><<<grid, kThreads, 0, stream>>>(f, gt, nbr, partial, n_in, n_out, K, rows_per_chunk);
+      break;
+    case 64:
+      sparse_conv_wgrad_kernel<T, CIN, 64><<<grid, kThreads, 0, stream>>>(f, gt, nbr, partial, n_in, n_out, K, rows_per_chunk);
+      break;
+    case 128:
+      sparse_conv_wgrad_kernel<T, CIN, 128><<<grid, kThreads, 0, stream>>>(f, gt, nbr, partial, n_in, n_out, K, rows_per_chunk);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_wgrad(const void* feats, const void* g, const int* nbr, float* partial,
+                 int n_in, int n_out, int K, int cin, int cout, int chunks,
+                 int rows_per_chunk, cudaStream_t stream) {
+  switch (cin) {
+    case 16:
+      return launch_wgrad_cin<T, 16>(feats, g, nbr, partial, n_in, n_out, K, cout, chunks, rows_per_chunk, stream);
+    case 32:
+      return launch_wgrad_cin<T, 32>(feats, g, nbr, partial, n_in, n_out, K, cout, chunks, rows_per_chunk, stream);
+    case 64:
+      return launch_wgrad_cin<T, 64>(feats, g, nbr, partial, n_in, n_out, K, cout, chunks, rows_per_chunk, stream);
+    case 128:
+      return launch_wgrad_cin<T, 128>(feats, g, nbr, partial, n_in, n_out, K, cout, chunks, rows_per_chunk, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. cin a multiple of 16, cout one of 16, 32,
@@ -222,4 +412,30 @@ extern "C" int sparse_conv_fwd(const void* feats, const int* nbr, const void* w,
   if (dtype == 0) return launch<float>(feats, nbr, w, bias, out, n_in, n_out, K, cin, cout, s);
   if (dtype == 1) return launch<__nv_bfloat16>(feats, nbr, w, bias, out, n_in, n_out, K, cin, cout, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// dtype: 0 = float32, 1 = bfloat16. cin and cout each one of 16, 32, 64, 128,
+// K <= 27, 1 <= chunks; partial is scratch of chunks * K * cin * cout floats,
+// dw receives K * cin * cout floats.
+extern "C" int sparse_conv_wgrad(const void* feats, const void* g, const int* nbr,
+                                 float* partial, float* dw, int n_in, int n_out,
+                                 int K, int cin, int cout, int chunks, int dtype,
+                                 void* stream) {
+  if (K < 1 || K > kMaxTaps || chunks < 1) return (int)cudaErrorInvalidValue;
+  if (n_out <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int tiles = (n_out + kWRows - 1) / kWRows;
+  const int rows_per_chunk = (tiles + chunks - 1) / chunks * kWRows;
+  int err;
+  if (dtype == 0) {
+    err = launch_wgrad<float>(feats, g, nbr, partial, n_in, n_out, K, cin, cout, chunks, rows_per_chunk, s);
+  } else if (dtype == 1) {
+    err = launch_wgrad<__nv_bfloat16>(feats, g, nbr, partial, n_in, n_out, K, cin, cout, chunks, rows_per_chunk, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (err != 0) return err;
+  const long long n = (long long)K * cin * cout;
+  sparse_conv_wgrad_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(partial, dw, chunks, n);
+  return (int)cudaGetLastError();
 }

@@ -59,6 +59,8 @@ SIGNATURES = {
     "sparse_conv": {
         # feats, nbr, w, bias (or None), out, n_in, n_out, K, cin, cout, dtype, stream
         "sparse_conv_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        # feats, g, nbr, partial, dw, n_in, n_out, K, cin, cout, chunks, dtype, stream
+        "sparse_conv_wgrad": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     },
 }
 

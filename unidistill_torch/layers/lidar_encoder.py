@@ -26,6 +26,14 @@ over the whole batch (kernel K4 on the card). All rulebooks are built first,
 by `build_rulebooks`, from the voxel coordinates alone. There are no
 fixed-shape stage caps: every stage holds its true active sites.
 
+Training: when autograd will differentiate the encoder, `build_rulebooks`
+also builds each map's transpose once (`transpose_rules`), shared like the
+map by the convs that use it; every sparse conv's backward then runs K4 over
+it for the input gradient (all but `conv_input`, whose input, the voxel
+features, needs none) and K6 for the weight gradient. The MaskedBatchNorms
+take their batch statistics over the active sites. The JAX stage caps and
+`no_remat_stages` are TPU memory knobs with no counterpart here.
+
 Numerics: weights are held in f32 and cast with the features to the
 convs' `compute_dtype` (bf16 for the served model) at the call; the convs
 sum in f32; BatchNorm (flax momentum 0.99), ReLU and the residual sums run
@@ -36,7 +44,7 @@ The SparseBasicBlock convs carry a bias that is added before the BatchNorm
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -53,6 +61,7 @@ from unidistill_torch.ops.sparse_conv import (
     sparse_conv,
     subm_rules,
     to_dense_bev,
+    transpose_rules,
 )
 
 # name, cin, cout, kernel (z, y, x), stride, padding
@@ -83,10 +92,15 @@ class Rulebooks:
     sites: List[SparseTensor]  # s0 (carrying the voxel features), s2, s3, s4, s5
     subm: List[torch.Tensor]   # SubM maps at s0, s2, s3, s4: [N_i, 27]
     down: List[torch.Tensor]   # maps of down2, down3, down4, conv_out: [N_out, K]
+    # their transposes [N_in, K] (`transpose_rules`), or None when not built
+    subm_t: List[Optional[torch.Tensor]]
+    down_t: List[Optional[torch.Tensor]]
 
 
 def build_rulebooks(voxel_feats: torch.Tensor, voxel_coords: torch.Tensor,
-                    shapes: Sequence[Shape3]) -> Rulebooks:
+                    shapes: Sequence[Shape3], transposed: bool = False) -> Rulebooks:
+    """Sites and maps of every stage; with `transposed`, the maps'
+    transposes too (what the backward needs)."""
     sites = [from_voxels(voxel_feats, voxel_coords, shapes[0])]
     subm = [subm_rules(sites[0])]
     down = []
@@ -96,7 +110,11 @@ def build_rulebooks(voxel_feats: torch.Tensor, voxel_coords: torch.Tensor,
         sites.append(out)
         if len(subm) < len(RES_STAGES):
             subm.append(subm_rules(out))
-    return Rulebooks(sites, subm, down)
+    if not transposed:
+        return Rulebooks(sites, subm, down, [None] * len(subm), [None] * len(down))
+    subm_t = [transpose_rules(m, m.shape[0]) for m in subm]
+    down_t = [transpose_rules(m, st.keys.numel()) for m, st in zip(down, sites)]
+    return Rulebooks(sites, subm, down, subm_t, down_t)
 
 
 class MaskedBatchNorm(BatchNorm):
@@ -121,11 +139,13 @@ class SubMConv(nn.Module):
         self.weight = nn.Parameter(torch.randn(K, cin, cout) * (2.0 / (K * cin)) ** 0.5)
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
-    def forward(self, x: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
-        """x [N_in, Cin] -> [N_out, Cout] in the compute dtype."""
+    def forward(self, x: torch.Tensor, nbr: torch.Tensor,
+                nbr_t: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x [N_in, Cin] -> [N_out, Cout] in the compute dtype; `nbr_t`, the
+        map's transpose, for the backward."""
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return sparse_conv(x.to(dt), nbr, self.weight.to(dt), bias)
+        return sparse_conv(x.to(dt), nbr, self.weight.to(dt), bias, nbr_t=nbr_t)
 
 
 class SparseDownConv(SubMConv):
@@ -151,9 +171,10 @@ class SparseBasicBlock(nn.Module):
         self.conv2 = SubMConv(planes, planes, bias=True)
         self.bn2 = MaskedBatchNorm(planes)
 
-    def forward(self, x: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
-        out = bn_relu(self.bn1, self.conv1(x, nbr))
-        out = self.bn2(self.conv2(out, nbr).float())
+    def forward(self, x: torch.Tensor, nbr: torch.Tensor,
+                nbr_t: Optional[torch.Tensor] = None) -> torch.Tensor:
+        out = bn_relu(self.bn1, self.conv1(x, nbr, nbr_t))
+        out = self.bn2(self.conv2(out, nbr, nbr_t).float())
         return F.relu(out + x.float())
 
 
@@ -173,14 +194,15 @@ class VoxelResBackBone8x(nn.Module):
     def forward(self, voxel_feats: torch.Tensor, voxel_coords: torch.Tensor) -> torch.Tensor:
         """voxel_feats [B, V, 5] (mean VFE), voxel_coords [B, V, 3] (z, y, x),
         -1 on padding -> BEV map [B, 256, 180, 180] (f32)."""
-        rb = build_rulebooks(voxel_feats.float(), voxel_coords, self.shapes)
+        grad = torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters())
+        rb = build_rulebooks(voxel_feats.float(), voxel_coords, self.shapes, transposed=grad)
         f = bn_relu(self.bn_input, self.conv_input(rb.sites[0].features, rb.subm[0]))
         for i, (name, *_rest) in enumerate(DOWN_CONVS):
             stage, _ = RES_STAGES[i]
-            f = getattr(self, f"{stage}a")(f, rb.subm[i])
-            f = getattr(self, f"{stage}b")(f, rb.subm[i])
+            f = getattr(self, f"{stage}a")(f, rb.subm[i], rb.subm_t[i])
+            f = getattr(self, f"{stage}b")(f, rb.subm[i], rb.subm_t[i])
             bn = self.bn_out if name == "conv_out" else getattr(self, f"bn{i + 2}")
-            f = bn_relu(bn, getattr(self, name)(f, rb.down[i]))
+            f = bn_relu(bn, getattr(self, name)(f, rb.down[i], rb.down_t[i]))
         return to_dense_bev(rb.sites[-1].with_features(f))
 
 

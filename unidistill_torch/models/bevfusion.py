@@ -1,11 +1,12 @@
-"""BEVFusion-CenterHead detector with one modality; counterpart of the JAX
+"""BEVFusion-CenterHead detector; counterpart of the JAX
 `models/bevfusion.py`.
 
-lidar_encoder (sparse voxel encoder -> [B, 256, ny, nx]) or camera_encoder
-(LSS -> [B, 256, ny, nx]) -> bev_encoder (SECOND 2D backbone ->
-[B, 512, ny, nx]) -> det_head (CenterHead -> per-task dicts of NCHW maps).
-The LiDAR-only and the camera-only detectors run; fusion (both modalities
-and the fusion encoder) is not ported yet and raises.
+lidar_encoder (sparse voxel encoder -> [B, 256, ny, nx]) and/or
+camera_encoder (LSS -> [B, 256, ny, nx]); with both, fusion_encoder (concat
+[lidar, camera] -> squeeze-excite gate -> 3×3 reduce -> [B, 256, ny, nx]);
+then bev_encoder (SECOND 2D backbone -> [B, 512, ny, nx]) -> det_head
+(CenterHead -> per-task dicts of NCHW maps). `model_output` is the
+encoders' map that the BEV backbone reads: the fused map for fusion.
 
 Every parameter is held in float32 (flax's default `param_dtype`); each
 convolution, the sparse ones included, casts its input and weights to
@@ -24,18 +25,36 @@ from torch import nn
 from unidistill_torch.configs.nuscenes import ModelConfig
 from unidistill_torch.layers.bev_backbone import BaseBEVBackbone
 from unidistill_torch.layers.center_head import CenterHead
-from unidistill_torch.layers.common import Conv2d, ConvTranspose2d
+from unidistill_torch.layers.common import BatchNorm, Conv2d, ConvTranspose2d
 from unidistill_torch.layers.lidar_encoder import LidarEncoder, SubMConv
 from unidistill_torch.layers.lss import LSSFPN
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+class FusionEncoder(nn.Module):
+    """Concat + squeeze-excite gate + 3×3 reduce (the JAX `FusionEncoder`,
+    use_elementwise=False): x = [lidar, camera] along the channels, in the
+    compute dtype; att = sigmoid(att_conv(mean over H, W of x)) (1×1, with
+    bias); y = relu(reduce_bn(reduce_conv(x · att))) (3×3, padding 1, no
+    bias; BatchNorm flax momentum 0.9, eps 1e-5, in float32). As in JAX, x
+    is cast to the compute dtype before the mean and the gate multiply."""
+
+    def __init__(self, in_channels: int, out_channels: int = 256):
+        super().__init__()
+        self.att_conv = Conv2d(in_channels, in_channels, 1, bias=True)
+        self.reduce_conv = Conv2d(in_channels, out_channels, 3, padding=1, bias=False)
+        self.reduce_bn = BatchNorm(out_channels, eps=1e-5, momentum=0.9)
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        x = torch.cat([x1, x2], 1).to(self.att_conv.compute_dtype)
+        att = torch.sigmoid(self.att_conv(x.mean((2, 3), keepdim=True)))
+        return torch.relu(self.reduce_bn(self.reduce_conv(x * att).float()))
+
+
 class BEVFusionCenterHead(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.with_lidar and cfg.with_camera:
-            raise NotImplementedError("fusion (LiDAR + camera) is not ported yet")
         if not (cfg.with_lidar or cfg.with_camera):
             raise ValueError("the model needs at least one modality")
         self.cfg = cfg
@@ -43,9 +62,12 @@ class BEVFusionCenterHead(nn.Module):
         if cfg.with_lidar:
             self.lidar_encoder = LidarEncoder(cfg.lidar_encoder)
             bev_in = be.num_bev_features
-        else:
+        if cfg.with_camera:
             self.camera_encoder = LSSFPN(cfg.camera_encoder)
             bev_in = cfg.camera_encoder.output_channels
+        if cfg.with_lidar and cfg.with_camera:
+            self.fusion_encoder = FusionEncoder(be.num_bev_features + cfg.camera_encoder.output_channels)
+            bev_in = 256  # the JAX FusionEncoder's out_channels
         self.bev_encoder = BaseBEVBackbone(
             bev_in, be.layer_nums, be.layer_strides,
             be.num_filters, be.upsample_strides, be.num_upsample_filters,
@@ -65,9 +87,11 @@ class BEVFusionCenterHead(nn.Module):
                 imgs: Optional[torch.Tensor] = None,
                 mats: Optional[Dict[str, torch.Tensor]] = None) -> Dict:
         if self.cfg.with_lidar:
-            model_output = self.lidar_encoder(voxel_feats, voxel_coords)
-        else:
+            model_output = lidar_out = self.lidar_encoder(voxel_feats, voxel_coords)
+        if self.cfg.with_camera:
             model_output = self.camera_encoder(imgs, mats)
+        if self.cfg.with_lidar and self.cfg.with_camera:
+            model_output = self.fusion_encoder(lidar_out, model_output)
         bev, _pyramid = self.bev_encoder(model_output)
         preds = self.det_head(bev)
         return dict(

@@ -26,9 +26,23 @@ are z-major, k = (kz·ky_size + ky)·kx_size + kx, as in the JAX
 The rulebooks are index arithmetic, sort and binary search: plain PyTorch,
 as they are XLA (not Pallas) in the JAX package.
 
-`sparse_conv(features, nbr, weight, bias)` launches kernel K4
-(`csrc/sparse_conv.cu`) for CUDA tensors and raises on any failure; for CPU
-tensors it runs `sparse_conv_plain`, the same function in plain PyTorch.
+The backward reads the same maps the other way round. `transpose_rules`
+gives the input-stationary map `nbr_t [N_in, K]`: nbr_t[i, k] = o iff
+nbr[o, k] = i (-1 where no output reads input i at tap k). Every (input,
+tap) pair is read by at most one output: at stride 1 the offset fixes it,
+at stride s the output o = (i + p - k) / s per dimension. For a submanifold
+map nbr_t is nbr with its taps reversed.
+
+`sparse_conv(features, nbr, weight, bias, nbr_t=None)` launches kernel K4
+(`csrc/sparse_conv.cu`) for CUDA tensors and raises on any failure; when
+autograd needs its gradient it runs as `SparseConv`, whose backward is
+  dfeat = K4 over nbr_t with W[k]ᵀ (`sparse_conv_dgrad_cuda`),
+  dW[k] = Σ_o features[nbr[o, k]]ᵀ·g[o], kernel K6 (`sparse_conv_wgrad_cuda`),
+  dbias = Σ_o g[o] (a plain reduction);
+the counterpart of the JAX custom VJP `_subm_bwd`. For CPU tensors it runs
+`sparse_conv_plain`, the same function in plain PyTorch, which autograd
+differentiates; `sparse_conv_dgrad_plain` and `sparse_conv_wgrad_plain` are
+the backward kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -43,6 +57,13 @@ from unidistill_torch.kernels import build
 Shape3 = Tuple[int, int, int]
 K4_COUTS = (16, 32, 64, 128)
 K4_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+K6_CHANNELS = (16, 32, 64, 128)  # Cin (after padding to 16) and Cout
+# K6 splits the output rows of each tap into at most K6_MAX_CHUNKS chunks of
+# whole K6_ROWS-row tiles (`kWRows` in csrc/sparse_conv.cu); one block per
+# (chunk, tap) writes its partial [Cin, Cout] sum, a second kernel adds the
+# chunks in chunk order
+K6_ROWS = 32
+K6_MAX_CHUNKS = 64
 
 
 @dataclass(frozen=True)
@@ -204,63 +225,179 @@ def sparse_conv_plain(features: torch.Tensor, nbr: torch.Tensor, weight: torch.T
     return out.to(features.dtype)
 
 
+def _check_conv_args(what: str, features: torch.Tensor, nbr: torch.Tensor, K: int, cin: int) -> None:
+    """features [N_in, cin] float32 or bfloat16 and nbr [N, K] int32, both
+    on the card, with row counts the kernels' int32 counters hold."""
+    for name, t in (("features", features), ("nbr", nbr)):
+        if not t.is_cuda:
+            raise ValueError(f"{what}: {name} must be a CUDA tensor")
+    if features.dtype not in K4_DTYPES:
+        raise ValueError(f"{what}: features must be float32 or bfloat16, got {features.dtype}")
+    if features.dim() != 2 or features.shape[1] != cin:
+        raise ValueError(f"{what}: features {tuple(features.shape)} must be [N_in, {cin}]")
+    if nbr.dtype != torch.int32 or nbr.dim() != 2 or nbr.shape[1] != K or K > 27:
+        raise ValueError(f"{what}: nbr must be int32 [N, {K}] (K <= 27), got {nbr.dtype} {tuple(nbr.shape)}")
+    if max(features.shape[0], nbr.shape[0]) >= 2**31:
+        raise ValueError(f"{what}: too many rows for the kernel's int32 row counts")
+
+
+def _pad16(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """x zero-padded along `dim` (counted from the end) to a multiple of 16,
+    contiguous and 16-byte aligned: the kernels load rows 16 bytes at a
+    time."""
+    pad = -x.shape[-dim] % 16
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0) * (dim - 1) + (0, pad))
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError("sparse_conv: a kernel input is not 16-byte aligned")
+    return x
+
+
+def _launch_k4(name: str, features: torch.Tensor, nbr: torch.Tensor, weight: torch.Tensor,
+               bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """One launch of K4, counted under `name` (none for an empty map)."""
+    K, cin, cout = weight.shape
+    _check_conv_args(name, features, nbr, K, cin)
+    if not weight.is_cuda or weight.dtype != features.dtype:
+        raise ValueError(f"{name}: weight must be a CUDA tensor of the features' dtype {features.dtype}")
+    if cout not in K4_COUTS:
+        raise ValueError(f"{name}: Cout {cout} is not one of {K4_COUTS}")
+    b32 = None
+    if bias is not None:
+        if tuple(bias.shape) != (cout,) or not bias.is_cuda:
+            raise ValueError(f"{name}: bias must be a CUDA tensor of shape ({cout},)")
+        b32 = bias.float().contiguous()
+    out = torch.empty(nbr.shape[0], cout, dtype=features.dtype, device=features.device)
+    if out.shape[0] == 0:  # nothing to launch
+        return out
+    features, weight, nbr = _pad16(features, 1), _pad16(weight, 2), nbr.contiguous()
+    lib = build.library("sparse_conv")
+    err = lib.sparse_conv_fwd(
+        features.data_ptr(), nbr.data_ptr(), weight.data_ptr(),
+        None if b32 is None else b32.data_ptr(), out.data_ptr(),
+        features.shape[0], nbr.shape[0], K, features.shape[1], cout, K4_DTYPES[features.dtype],
+        torch.cuda.current_stream(features.device).cuda_stream,
+    )
+    build.check(err, name)
+    build.LAUNCHES[name] += 1
+    return out
+
+
 def sparse_conv_cuda(features: torch.Tensor, nbr: torch.Tensor, weight: torch.Tensor,
                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel K4. features [N_in, Cin], weight [K, Cin, Cout] in one dtype
     (float32 or bfloat16), nbr [N_out, K] int32, bias [Cout] -> [N_out, Cout]
     in that dtype. Cin is zero-padded to a multiple of 16 here (the kernel's
     16-byte row loads); the padded weight rows are zero."""
+    return _launch_k4("sparse_conv_fwd", features, nbr, weight, bias)
+
+
+def sparse_conv_dgrad_plain(g: torch.Tensor, nbr_t: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Plain version of the input gradient: the conv of g [N_out, Cout] over
+    the transposed map nbr_t [N_in, K] with W[k]ᵀ -> [N_in, Cin]."""
+    return sparse_conv_plain(g, nbr_t, weight.transpose(1, 2))
+
+
+def sparse_conv_dgrad_cuda(g: torch.Tensor, nbr_t: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """K4 as the input gradient of a sparse conv, counted as
+    `sparse_conv_dgrad`: g [N_out, Cout] and weight [K, Cin, Cout] in one
+    dtype, nbr_t [N_in, K] int32 (`transpose_rules`) -> dfeat [N_in, Cin] in
+    that dtype. Cin must be one of K4's output widths."""
+    return _launch_k4("sparse_conv_dgrad", g, nbr_t, weight.transpose(1, 2), None)
+
+
+def sparse_conv_wgrad_plain(features: torch.Tensor, g: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
+    """Plain version of K6: per tap, the feature rows it read
+    (`index_select`, a zero row for -1) times g, in f32 -> [K, Cin, Cout]."""
     n_in, cin = features.shape
-    K, wcin, cout = weight.shape
-    for name, t in (("features", features), ("nbr", nbr), ("weight", weight)):
-        if not t.is_cuda:
-            raise ValueError(f"sparse_conv: {name} must be a CUDA tensor")
-    if features.dtype not in K4_DTYPES or weight.dtype != features.dtype:
-        raise ValueError(f"sparse_conv: features {features.dtype} and weight {weight.dtype} "
-                         "must both be float32 or both bfloat16")
-    if nbr.dtype != torch.int32 or nbr.dim() != 2 or nbr.shape[1] != K:
-        raise ValueError(f"sparse_conv: nbr must be int32 [N_out, {K}], got {nbr.dtype} {tuple(nbr.shape)}")
-    if wcin != cin or cout not in K4_COUTS or K > 27:
-        raise ValueError(f"sparse_conv: weight {tuple(weight.shape)} does not fit features "
-                         f"[{n_in}, {cin}] (Cout in {K4_COUTS}, K <= 27)")
-    if max(n_in, nbr.shape[0]) >= 2**31:
-        raise ValueError("sparse_conv: too many rows for the kernel's int32 row counts")
-    pad = -cin % 16
-    if pad:
-        features = torch.nn.functional.pad(features, (0, pad))
-        weight = torch.nn.functional.pad(weight, (0, 0, 0, pad))
-    features, nbr, weight = features.contiguous(), nbr.contiguous(), weight.contiguous()
-    if features.data_ptr() % 16 or weight.data_ptr() % 16:
-        raise ValueError("sparse_conv: features and weight must be 16-byte aligned")
-    b32 = None
-    if bias is not None:
-        if tuple(bias.shape) != (cout,) or not bias.is_cuda:
-            raise ValueError(f"sparse_conv: bias must be a CUDA tensor of shape ({cout},)")
-        b32 = bias.float().contiguous()
-    out = torch.empty(nbr.shape[0], cout, dtype=features.dtype, device=features.device)
-    if out.shape[0] == 0:  # nothing to launch
-        return out
+    fz = torch.cat([features.float(), features.new_zeros(1, cin, dtype=torch.float32)])
+    idx = torch.where(nbr < 0, n_in, nbr).long()
+    g32 = g.float()
+    return torch.stack([fz.index_select(0, idx[:, k]).t().mm(g32) for k in range(nbr.shape[1])])
+
+
+def sparse_conv_wgrad_cuda(features: torch.Tensor, g: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
+    """Kernel K6: dW[k] = Σ_o features[nbr[o, k]]ᵀ · g[o], summed in f32 in a
+    fixed order (deterministic). features [N_in, Cin] and g [N_out, Cout] in
+    one dtype (float32 or bfloat16), nbr [N_out, K] int32 -> [K, Cin, Cout]
+    float32. Cin is zero-padded to a multiple of 16 here, as for K4."""
+    n_in, cin = features.shape
+    K = nbr.shape[-1]
+    _check_conv_args("sparse_conv_wgrad", features, nbr, K, cin)
+    if not g.is_cuda or g.dtype != features.dtype or g.dim() != 2 or g.shape[0] != nbr.shape[0]:
+        raise ValueError(f"sparse_conv_wgrad: g {g.dtype} {tuple(g.shape)} must be a CUDA tensor of the "
+                         f"features' dtype with one row per row of nbr {tuple(nbr.shape)}")
+    n_out, cout = g.shape
+    cin_p = cin + -cin % 16
+    if cin_p not in K6_CHANNELS or cout not in K6_CHANNELS:
+        raise ValueError(f"sparse_conv_wgrad: Cin {cin} (padded {cin_p}) and Cout {cout} "
+                         f"must be in {K6_CHANNELS}")
+    if n_out == 0:  # nothing to launch
+        return torch.zeros(K, cin, cout, dtype=torch.float32, device=g.device)
+    dw = torch.empty(K, cin_p, cout, dtype=torch.float32, device=g.device)
+    x, g, nbr = _pad16(features, 1), _pad16(g, 1), nbr.contiguous()
+    chunks = min(-(-n_out // K6_ROWS), K6_MAX_CHUNKS)
+    partial = torch.empty(chunks, K, cin_p, cout, dtype=torch.float32, device=g.device)
     lib = build.library("sparse_conv")
-    err = lib.sparse_conv_fwd(
-        features.data_ptr(), nbr.data_ptr(), weight.data_ptr(),
-        None if b32 is None else b32.data_ptr(), out.data_ptr(),
-        n_in, nbr.shape[0], K, cin + pad, cout, K4_DTYPES[features.dtype],
-        torch.cuda.current_stream(features.device).cuda_stream,
+    err = lib.sparse_conv_wgrad(
+        x.data_ptr(), g.data_ptr(), nbr.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+        n_in, n_out, K, cin_p, cout, chunks, K4_DTYPES[g.dtype],
+        torch.cuda.current_stream(g.device).cuda_stream,
     )
-    build.check(err, "sparse_conv_fwd")
-    build.LAUNCHES["sparse_conv_fwd"] += 1
-    return out
+    build.check(err, "sparse_conv_wgrad")
+    build.LAUNCHES["sparse_conv_wgrad"] += 1
+    return dw[:, :cin]
+
+
+def transpose_rules(nbr: torch.Tensor, n_in: int) -> torch.Tensor:
+    """The input-stationary map of `nbr` [N_out, K]: [n_in, K] int32 with
+    nbr_t[i, k] = o where nbr[o, k] = i, else -1. One scatter; entries with
+    no input land in a dump slot past the end, which is cut off."""
+    n_out, K = nbr.shape
+    dev = nbr.device
+    flat = torch.where(nbr >= 0, nbr.long() * K + torch.arange(K, device=dev), n_in * K).reshape(-1)
+    rows = torch.arange(n_out, dtype=torch.int32, device=dev)[:, None].expand(n_out, K).reshape(-1)
+    nbr_t = torch.full((n_in * K + 1,), -1, dtype=torch.int32, device=dev)
+    nbr_t.scatter_(0, flat, rows)
+    return nbr_t[: n_in * K].reshape(n_in, K)
+
+
+class SparseConv(torch.autograd.Function):
+    """K4 forward; backward K4 over the transposed map (dfeat) and K6 (dW),
+    as the JAX custom VJP `_subm_bwd` (sparse_conv_pallas.py:279)."""
+
+    @staticmethod
+    def forward(ctx, features, nbr, weight, bias, nbr_t):
+        ctx.save_for_backward(features, nbr, weight, nbr_t)
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return sparse_conv_cuda(features, nbr, weight, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        features, nbr, weight, nbr_t = ctx.saved_tensors
+        g = g.to(features.dtype).contiguous()  # as JAX: g in the features' dtype
+        dfeat = dweight = dbias = None
+        if ctx.needs_input_grad[0]:
+            if nbr_t is None:
+                nbr_t = transpose_rules(nbr, features.shape[0])
+            dfeat = sparse_conv_dgrad_cuda(g, nbr_t, weight)
+        if ctx.needs_input_grad[2]:
+            dweight = sparse_conv_wgrad_cuda(features, g, nbr).to(weight.dtype)
+        if ctx.needs_input_grad[3]:
+            dbias = g.float().sum(0).to(ctx.bias_dtype)
+        return dfeat, None, dweight, dbias, None
 
 
 def sparse_conv(features: torch.Tensor, nbr: torch.Tensor, weight: torch.Tensor,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                bias: Optional[torch.Tensor] = None, nbr_t: Optional[torch.Tensor] = None) -> torch.Tensor:
     """out[i] = bias + Σ_k weight[k]ᵀ·features[nbr[i, k]] (missing taps add
     nothing), summed in f32 and returned in the features' dtype. On the card
-    K4 has no backward yet, so a call that autograd would differentiate
-    raises instead of returning a result without a gradient."""
+    a call that autograd differentiates runs as `SparseConv`; `nbr_t`, the
+    transposed map (`transpose_rules(nbr, N_in)`), may be given so that convs
+    sharing a map share it too, else the backward builds it."""
     if not features.is_cuda:
         return sparse_conv_plain(features, nbr, weight, bias)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (features, weight, bias)):
-        raise NotImplementedError("sparse_conv: K4 has no backward yet; run the LiDAR encoder "
-                                  "on the card under torch.no_grad() or with frozen weights")
+        return SparseConv.apply(features, nbr, weight, bias, nbr_t)
     return sparse_conv_cuda(features, nbr, weight, bias)

@@ -1,18 +1,20 @@
 """Serving entry point: `Detector(cfg, state_dict).predict(batch)`.
 
 The contract of the JAX package's `serving/export.py` (`load_detector(path)
-.predict(batch)`) for the LiDAR-only and the camera-only detector. The
-batch holds, for the LiDAR detector, one of the export's two input modes
+.predict(batch)`) for the LiDAR-only, the camera-only and the fusion
+detector. The batch holds, for a detector with LiDAR, one of the export's
+two input modes
 (without its `topo_*` tables, which only the TPU build uses):
   "points"       points [B, P, 5] float32 (x, y, z, intensity, Δt) and
                  points_mask [B, P] bool
   "host_voxels"  voxel_feats [B, V, 5] float32 (mean VFE) and voxel_coords
                  [B, V, 3] int32 (z, y, x; -1 on padding)
-and for the camera detector
+and for a detector with cameras
   imgs           [B, N_cam, H, W, 3] float32 (normalised)
   mats           sensor2ego_mats / intrin_mats / ida_mats [B, N_cam, 4, 4]
                  and bda_mat [B, 4, 4], float32
-(other keys, such as gt_boxes, are ignored). `predict` returns the eval
+(the fusion detector takes both; other keys, such as gt_boxes, are
+ignored). `predict` returns the eval
 step's fixed-size ROI dict: boxes [B, R, 9], scores [B, R], labels [B, R]
 (1-based), mask [B, R], as tensors on the detector's device.
 
@@ -54,7 +56,8 @@ def _expect(name: str, v, shape, dtypes) -> None:
 
 
 class Detector:
-    """A LiDAR-only or camera-only BEVFusion-CenterHead detector ready to serve."""
+    """A LiDAR-only, camera-only or fusion BEVFusion-CenterHead detector
+    ready to serve."""
 
     def __init__(self, cfg: ModelConfig, state_dict: Mapping[str, Any], device="cuda"):
         self.cfg = cfg
@@ -66,7 +69,7 @@ class Detector:
     def _check(self, batch: Mapping[str, Any]) -> None:
         if self.cfg.with_lidar:
             self._check_lidar(batch)
-        else:
+        if self.cfg.with_camera:
             self._check_camera(batch)
 
     def _check_lidar(self, batch: Mapping[str, Any]) -> None:

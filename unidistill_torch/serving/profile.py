@@ -1,16 +1,24 @@
-"""Where the time of one full-width `Detector.predict`, or of one distill
-train step, goes on the card.
+"""Where the time of one full-width `Detector.predict`, or of one train
+step, goes on the card.
 
-    python -m unidistill_torch.serving.profile [--modality camera|lidar|distill]
+    python -m unidistill_torch.serving.profile
+        [--modality camera|lidar|distill|lidar-train|fusion]
         [--batch 4] [--requests 5] [--out DIR]
 
 Serves `camera_exp().model` (nuScenes-like camera matrices) or
 `lidar_exp().model` (nuScenes-like 10-sweep point clouds), in bf16 with
-seeded random weights and BatchNorm statistics calibrated on the batch; or,
-with `--modality distill`, trains the camera student from the frozen LiDAR
-teacher with `distill_train_step` on `train_batch` (a request is then one
-step: teacher forward, student forward, assigner, detection loss, distill
-losses, backward with K5 inside, optimizer). It reports:
+seeded random weights and BatchNorm statistics calibrated on the batch; or
+runs one train step per request on `train_batch`:
+  distill      the camera student from the frozen LiDAR teacher
+               (`distill_train_step`; teacher forward, student forward,
+               assigner, detection loss, distill losses, backward with K5
+               inside, optimizer);
+  lidar-train  the LiDAR detector's `train_step` (voxelise, rulebooks and
+               their transposes, forward, assigner, detection loss, backward
+               with K4 as the input gradient and K6 inside, optimizer);
+  fusion       the fusion detector's `train_step` (both encoders; K4 dgrad,
+               K6 and K5 inside the backward).
+It reports:
   * per-stage device time by CUDA events around each stage (forward hooks
     on the modules, wrappers around the functions), mean over the requests;
     for the LiDAR detector: voxelise, rulebooks, each encoder stage (its
@@ -127,7 +135,7 @@ def distill_setup(batch_size):
     teacher = BEVFusionCenterHead(t_cfg)
     teacher.load_state_dict(random_state_dict(t_cfg, seed=10))
     teacher.cuda().requires_grad_(False)
-    calibrate_batchnorm(teacher, steps.model_inputs(batch, t_cfg, "cuda"))
+    calibrate_batchnorm(teacher, steps.model_inputs(batch, t_cfg, "cuda", training=False))
     student = BEVFusionCenterHead(s_cfg)
     student.load_state_dict(random_state_dict(s_cfg, seed=0))
     student.cuda()
@@ -140,24 +148,61 @@ def distill_setup(batch_size):
     return s_cfg, step, teacher, student, opt
 
 
-def time_distill(timer, teacher, student, opt):
-    from unidistill_torch.ops import bev_pool
+def train_setup(kind, batch_size):
+    """A detector's train step at full width (`lidar-train`: `lidar_exp()`,
+    `fusion`: `fusion_exp()`), as `chip_smoke.py` runs it: (cfg, step
+    function, model, optimizer)."""
+    from unidistill_torch.configs.nuscenes import fusion_exp, lidar_exp
+    from unidistill_torch.models.bevfusion import BEVFusionCenterHead
+    from unidistill_torch.serving.synthetic import random_state_dict, train_batch
     from unidistill_torch.training import steps
-    timer.module("teacher forward", teacher)
-    timer.module("student forward", student)
+    from unidistill_torch.training.train_state import TrainState, make_optimizer
+    exp = lidar_exp() if kind == "lidar-train" else fusion_exp()
+    cfg = exp.model
+    batch = train_batch(cfg, cfg, batch_size, seed=21)
+    batch = {k: ({m: torch.from_numpy(a).cuda() for m, a in v.items()} if isinstance(v, dict)
+                 else torch.from_numpy(v).cuda()) for k, v in batch.items()}
+    model = BEVFusionCenterHead(cfg)
+    model.load_state_dict(random_state_dict(cfg, seed=30))
+    model.cuda()
+    opt = make_optimizer(model, exp.train)
+    state = TrainState()
+
+    def step():
+        return steps.metrics_to_host(steps.train_step(state, batch, model, opt, cfg))
+    return cfg, step, model, opt
+
+
+def time_train(timer, kind, models, opt):
+    """Stages of a train step: the forwards (`models`: name -> module), the
+    LiDAR maps, assigner, losses, backward with the kernels inside it,
+    optimizer, the whole step."""
+    from unidistill_torch.layers import lidar_encoder
+    from unidistill_torch.ops import bev_pool, sparse_conv
+    from unidistill_torch.training import steps
+    for name, mod in models.items():
+        timer.module(name, mod)
+    if kind != "distill":
+        timer.function("voxelise", steps, "voxelize_batch")
+        timer.function("rulebooks (with transposes)", lidar_encoder, "build_rulebooks")
+        timer.function("transposed maps", lidar_encoder, "transpose_rules")
     timer.function("assigner", steps, "assign_targets")
     timer.function("detection loss", steps, "center_head_loss")
-    for name in ("feature_distill_loss", "bev_distill_loss", "response_distill_loss"):
-        timer.function("distill losses", steps, name)
+    if kind == "distill":
+        for name in ("feature_distill_loss", "bev_distill_loss", "response_distill_loss"):
+            timer.function("distill losses", steps, name)
     timer.function("backward", torch.Tensor, "backward")
     timer.function("K5 (in backward)", bev_pool, "bev_pool_bwd_cuda")
+    timer.function("K4 dgrad (in backward)", sparse_conv, "sparse_conv_dgrad_cuda")
+    timer.function("K6 (in backward)", sparse_conv, "sparse_conv_wgrad_cuda")
     timer.function("optimizer", opt, "step")
-    timer.function("step", steps, "distill_train_step")
+    timer.function("step", steps, "distill_train_step" if kind == "distill" else "train_step")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--modality", choices=("camera", "lidar", "distill"), default="camera")
+    ap.add_argument("--modality", choices=("camera", "lidar", "distill", "lidar-train", "fusion"),
+                    default="camera")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--requests", type=int, default=5)
     ap.add_argument("--out", default="build/profile")
@@ -182,14 +227,25 @@ def main(argv=None) -> int:
         cfg, run, teacher, student, opt = distill_setup(args.batch)
         run()  # warm-up
         torch.cuda.reset_peak_memory_stats()
-        time_distill(timer, teacher, student, opt)
+        time_train(timer, "distill", {"teacher forward": teacher, "student forward": student}, opt)
+    elif args.modality in ("lidar-train", "fusion"):
+        cfg, run, model, opt = train_setup(args.modality, args.batch)
+        run()  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        mods = dict(model.named_modules())
+        forwards = {"forward": model}
+        for stage, name in (("LiDAR encoder", "lidar_encoder"), ("camera encoder", "camera_encoder"),
+                            ("fusion encoder", "fusion_encoder")):
+            if name in mods:
+                forwards[stage] = mods[name]
+        time_train(timer, args.modality, forwards, opt)
     else:
         cfg, batch = (lidar_setup if lidar else camera_setup)(args.batch)
         det = Detector(cfg, random_state_dict(cfg, seed=10 if lidar else 0), device="cuda")
-        calibrate_batchnorm(det.model, steps.model_inputs(batch, cfg, "cuda"))
+        calibrate_batchnorm(det.model, steps.model_inputs(batch, cfg, "cuda", training=False))
         run = lambda: det.predict(batch)
         if lidar:  # the sites per stage of this batch, per sample
-            rb = lidar_encoder.build_rulebooks(**steps.model_inputs(batch, cfg, "cuda"),
+            rb = lidar_encoder.build_rulebooks(**steps.model_inputs(batch, cfg, "cuda", training=False),
                                                shapes=lidar_encoder.stage_shapes(cfg.grid_size))
             sites = [torch.bincount(st.coords[:, 0], minlength=args.batch).tolist() for st in rb.sites]
             del rb

@@ -2,7 +2,8 @@
 smoke runs and measurements on the card (no dataset and no trained weights
 needed).
 
-`random_state_dict(cfg, seed)` gives weights the detector loads strictly;
+`random_state_dict(cfg, seed)` gives weights the detector (camera, LiDAR or
+fusion) loads strictly;
 `calibrate_batchnorm(model, inputs)` then sets every BatchNorm's running
 statistics to those of one batch, so that activations keep a unit scale
 through the random network (random statistics let them grow to ~1e5 at the
@@ -15,8 +16,9 @@ of the eval pipeline), identity BDA, normalised random images.
 full-model golden test, chosen so that frustum points land well inside BEV
 cells (cell truncation is bitwise-sensitive at the edges).
 `lidar_batch(cfg, B, seed)` gives nuScenes-like 10-sweep point clouds;
-`train_batch(s_cfg, t_cfg, B, seed)` the frames of a distill step: camera
-images and matrices, LiDAR clouds and the GT boxes of the clouds' scenes.
+`train_batch(s_cfg, t_cfg, B, seed)` the frames of a train or distill step
+of any detector or pair: camera images and matrices, LiDAR clouds and the
+GT boxes of the clouds' scenes.
 """
 from __future__ import annotations
 

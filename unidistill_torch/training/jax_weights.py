@@ -14,6 +14,8 @@ with dots. Layouts:
     encoder's weights keep the JAX layout, z-major taps; conv_out has K = 3)
   * BatchNorm scale/bias + mean/var          -> weight/bias + running_*
     (the LiDAR encoder's MaskedBatchNorms included)
+  * the fusion encoder's leaves (`fusion_encoder.att_conv` 1×1 kernel and
+    bias, `reduce_conv` 3×3 kernel, `reduce_bn`) follow the rules above
   * det_head out_kernel [3, 3, G, hc, o_max] -> grouped out_conv weight
     [G·o_max, hc, 3, 3]; out_bias [G, o_max] -> [G·o_max]
 Every transform is a permutation, so a JAX gradient tree maps onto the

@@ -5,7 +5,8 @@ counterpart of the JAX `training/steps.py` (`voxelize_batch`,
 
 Batch layout (the JAX one); values may be numpy arrays or tensors:
   LiDAR   points [B, P, 5] f32 (x, y, z, intensity, Δt) + points_mask
-          [B, P] bool, voxelised here at `caps.max_voxels_eval`; or
+          [B, P] bool, voxelised here at `caps.max_voxels_train` in training
+          and `caps.max_voxels_eval` otherwise (the JAX caps); or
           loader-side voxels voxel_feats [B, V, 5] f32 + voxel_coords
           [B, V, 3] int32 (z, y, x; -1 on padding), used as they are
   camera  imgs [B, N_cam, H, W, 3] f32 (normalised); mats
@@ -46,18 +47,19 @@ def _tensor(x: Any, device: torch.device, dtype=torch.float32) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def voxelize_batch(batch: Dict[str, Any], cfg: ModelConfig, device) -> Dict[str, torch.Tensor]:
-    """Voxels + mean VFE of the batch's padded point clouds (eval cap)."""
+def voxelize_batch(batch: Dict[str, Any], cfg: ModelConfig, device, training: bool) -> Dict[str, torch.Tensor]:
+    """Voxels + mean VFE of the batch's padded point clouds, at the train
+    voxel cap when `training`, else at the eval cap."""
     caps = cfg.caps
     feats, coords = voxelize(
         _tensor(batch["points"], device), _tensor(batch["points_mask"], device, torch.bool),
         cfg.point_cloud_range, cfg.voxel_size, cfg.grid_size,
-        caps.max_voxels_eval, caps.max_points_per_voxel,
+        caps.max_voxels_train if training else caps.max_voxels_eval, caps.max_points_per_voxel,
     )
     return dict(voxel_feats=feats, voxel_coords=coords)
 
 
-def model_inputs(batch: Dict[str, Any], cfg: ModelConfig, device) -> Dict[str, Any]:
+def model_inputs(batch: Dict[str, Any], cfg: ModelConfig, device, training: bool) -> Dict[str, Any]:
     device = torch.device(device)
     kw: Dict[str, Any] = {}
     if cfg.with_lidar:
@@ -65,7 +67,7 @@ def model_inputs(batch: Dict[str, Any], cfg: ModelConfig, device) -> Dict[str, A
             kw.update(voxel_feats=_tensor(batch["voxel_feats"], device),
                       voxel_coords=_tensor(batch["voxel_coords"], device, torch.int32))
         else:
-            kw.update(voxelize_batch(batch, cfg, device))
+            kw.update(voxelize_batch(batch, cfg, device, training))
     if cfg.with_camera:
         kw.update(imgs=_tensor(batch["imgs"], device),
                   mats={k: _tensor(v, device) for k, v in batch["mats"].items()})
@@ -79,7 +81,7 @@ def eval_step(model, batch: Dict[str, Any], cfg: ModelConfig) -> Dict[str, torch
     if model.training:
         raise ValueError("eval_step needs the model in eval mode (model.eval())")
     device = next(model.parameters()).device
-    out = model(**model_inputs(batch, cfg, device))
+    out = model(**model_inputs(batch, cfg, device, training=False))
     return generate_proposals(
         out["multi_head_features"], cfg.proposal, cfg.tasks,
         cfg.point_cloud_range[:2], cfg.voxel_size[:2], cfg.out_size_factor,
@@ -114,7 +116,7 @@ def train_step(state: TrainState, batch: Dict[str, Any], model, optimizer: Optim
     optimizer update. Returns the metrics (0-d tensors on the device)."""
     device = next(model.parameters()).device
     model.train()
-    out = model(**model_inputs(batch, cfg, device))
+    out = model(**model_inputs(batch, cfg, device, training=True))
     loss, metrics, _ = detector_loss(out, _tensor(batch["gt_boxes"], device), cfg)
     return _update(state, loss, optimizer, metrics)
 
@@ -123,8 +125,9 @@ def distill_train_step(state: TrainState, batch: Dict[str, Any], student, teache
                        optimizer: Optimizer, student_cfg: ModelConfig, teacher_cfg: ModelConfig,
                        dcfg: DistillConfig) -> Dict[str, torch.Tensor]:
     """Teacher -> student step: total = det + w_feature·feature + w_rel·bev_rel
-    + w_resp·(resp_cls + resp_reg). The teacher runs frozen, in eval mode
-    under no_grad; the student trains."""
+    + w_resp·(resp_cls + resp_reg), for any pair of `DISTILL_VARIANTS`. The
+    teacher runs frozen, in eval mode under no_grad, on the eval voxel cap;
+    the student trains on the train cap (each voxelises the batch itself)."""
     device = next(student.parameters()).device
     gt = _tensor(batch["gt_boxes"], device)
     gt_mask = gt.abs().sum(-1) > 0
@@ -132,9 +135,9 @@ def distill_train_step(state: TrainState, batch: Dict[str, Any], student, teache
                              student_cfg.out_size_factor)
     teacher.eval()
     with torch.no_grad():
-        t_out = teacher(**model_inputs(batch, teacher_cfg, device))
+        t_out = teacher(**model_inputs(batch, teacher_cfg, device, training=False))
     student.train()
-    out = student(**model_inputs(batch, student_cfg, device))
+    out = student(**model_inputs(batch, student_cfg, device, training=True))
     det_loss, metrics, preds_sig = detector_loss(out, gt, student_cfg)
     l_feat = feature_distill_loss(out["model_output"], t_out["model_output"], corners, gt_mask)
     l_rel = bev_distill_loss(out["bev_feature"], t_out["bev_feature"], corners, gt_mask)
