@@ -9,8 +9,9 @@ seeded random weights, BatchNorm statistics calibrated on the batch) -- the
 camera detector (`camera_exp().model`), the LiDAR detector
 (`lidar_exp().model`, from nuScenes-like 10-sweep point clouds) and the
 fusion detector -- trains each detector and the four distillation pairs,
-and holds every kernel of each path against its plain PyTorch version on
-the inputs the path gave it.
+runs the sparse-conv microbenchmarks at their published sizes, and holds
+every kernel of each path against its plain PyTorch version on the inputs
+the path gave it.
 Phases, each printed on its own line:
 
   device   card name and power limit (nvidia-smi), torch and CUDA versions
@@ -60,12 +61,29 @@ Phases, each printed on its own line:
            both encoders): K1 once, K4 21 times, K2 and K3 once a request
   fusion train, distill fusion->lidar, distill fusion->camera   as distill
            train, with one warm-up and one timed step each
+  microbench      the sparse-conv microbenchmarks' entry points with every
+           launch count set to 0 just before and read just after:
+           `mb_pallas_fused` smoke (K8), `mb_gather_pallas` (index_select,
+           K9 unroll 1 and 4, K10, K11 at S 65536, W 640, R 2048, band
+           4096) and `mb_pallas_fused` one <s2, s0, s3> <prod, fused> on
+           four realistic frames planned once (the planner's seconds
+           printed); each of K7-K11 must launch
+  K8 smoke, K9 fori, K9 fori4, K10 take, K11 onehot   each kernel against
+           its plain version on the same inputs, bit for bit; kernel /
+           plain / library (`torch.add`, `index_select`) / bound ms
+  K7 fused_offsets   on each stage's realistic inputs (the rows the fused
+           conv gathers), against its plain f32 version at 1e-4 of max
+           |ref|; kernel / plain / library (bf16 `where` select + `einsum`)
+           / bound ms; the kernels line carries s2
+  subm prod vs fused   ms/conv of both paths per stage and their max |diff|
+           (within 2e-2 of max |prod|)
 
 Any failed phase raises, so the script exits non-zero. The last three lines
-are the kernel table (JSON; K4's ms, plain_ms, library_ms and bound_ms are
-sums over the 21 convs of one request, K4 dgrad's and K6's over the 20 and
-21 calls of one LiDAR train step; K5's launches are those of the timed
-distill steps, K4 dgrad's and K6's those of the timed LiDAR train steps),
+are the kernel table (JSON, K1-K11, K7's row at s2; K4's ms, plain_ms,
+library_ms and bound_ms are sums over the 21 convs of one request, K4
+dgrad's and K6's over the 20 and 21 calls of one LiDAR train step; K5's
+launches are those of the timed distill steps, K4 dgrad's and K6's those
+of the timed LiDAR train steps, K7-K11's those of the microbenchmarks),
 the card's name and power limit, and {"ok": true, "device": {...}}. nvcc's
 register report goes to build/unidistill_torch/nvcc.log.
 """
@@ -123,6 +141,14 @@ TIMED_STEPS = 3
 # K6 sums exact products (bf16 x bf16 fits f32) in f32 in another order
 K4_DGRAD_TOL = {torch.bfloat16: (1e-2, 1e-4), torch.float32: (1e-4, 1e-4)}
 K6_TOL = (1e-4, 1e-4)
+# the microbenchmark kernels: K7 against its plain f32 version, as max |diff|
+# over max |ref| (exact bf16 products summed in f32 in another order); the
+# fused conv against the separate path, as max |diff| over max |prod| (the
+# separate path rounds each of its 8 offset sums to bf16, the fused one only
+# the total); K8-K11 bit for bit
+K7_TOL_OF_MAX = 1e-4
+FUSED_VS_PROD_TOL_OF_MAX = 2e-2
+MB_STAGES = ("s2", "s0", "s3")
 # K5 against its plain version, both divided by max |ref|: no atomics, the
 # channel dot products and depth sums are float32 sums in another order
 K5_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -958,6 +984,157 @@ def fusion_phases(dev) -> None:
         torch.cuda.empty_cache()
 
 
+def microbench_phases(dev, table) -> None:
+    """This slice's path: the sparse-conv microbenchmarks' entry points
+    (smoke, the band gathers, the subm conv's prod and fused paths at the
+    published stage sizes), then K7-K11 against their plain versions."""
+    from unidistill_torch.configs.nuscenes import lidar_exp
+    from unidistill_torch.experiments import mb_gather_pallas, mb_pallas_fused
+    from unidistill_torch.experiments.realistic import realistic_inputs
+    from unidistill_torch.kernels import build
+    from unidistill_torch.ops import band_gather as bg
+    from unidistill_torch.ops import fused_offsets as fo
+    from unidistill_torch.ops.sparse_conv_chunked import _OFFS8, _band_weight, _w_zyx, _window_table
+
+    cfg = lidar_exp().model
+    t0 = time.time()
+    inputs, plan_s = realistic_inputs(cfg, MB_STAGES, device=dev)
+    log("microbench inputs", frames=4, plan_seconds=f"{plan_s:.2f}",
+        total_seconds=f"{time.time() - t0:.2f}",
+        **{f"{st}_S_C_valid": f"{x.S},{x.C},{x.valid.sum(1).tolist()}" for st, x in inputs.items()})
+
+    # ---- the entry points, launch counts from 0 ------------------------------
+    torch.cuda.synchronize()
+    build.reset_launches()
+    mb_pallas_fused.main(["smoke"])
+    mb_gather_pallas.main([])
+    conv = {}
+    for st in MB_STAGES:
+        for variant in ("prod", "fused"):
+            conv[st, variant] = mb_pallas_fused.run_one(st, variant, dev, cfg, x=inputs[st])
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    log("microbench", launches=json.dumps(launches, sort_keys=True))
+    for k in ("axpy2_bf16", "band_gather_fori", "band_gather_fori4", "band_gather_take",
+              "band_gather_onehot", "fused_offsets"):
+        if not launches.get(k):
+            raise RuntimeError(f"microbench: kernel {k} was not launched")
+    for st in MB_STAGES:
+        ms_p, ms_f = conv[st, "prod"][0], conv[st, "fused"][0]
+        _, derr, scale = conv[st, "fused"]
+        log(f"subm prod vs fused {st}", prod_ms_per_conv=f"{ms_p:.4f}", fused_ms_per_conv=f"{ms_f:.4f}",
+            max_abs_diff=f"{derr:.3e}", max_abs_prod=f"{scale:.3e}", tol=f"{FUSED_VS_PROD_TOL_OF_MAX}*max|prod|")
+        if not derr <= FUSED_VS_PROD_TOL_OF_MAX * scale:
+            raise RuntimeError(f"{st}: the fused conv differs from prod by {derr:.3e} (max |prod| {scale:.3e})")
+
+    # ---- K8 smoke -------------------------------------------------------------
+    gen = torch.Generator().manual_seed(31)
+    x = torch.randn(256, 256, generator=gen).mul(4).to(torch.bfloat16).to(dev)
+    y = torch.randn(256, 256, generator=gen).to(torch.bfloat16).to(dev)
+    got, ref = fo.axpy2_cuda(x, y), fo.smoke_plain(x, y)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
+        raise RuntimeError("K8 differs from 2x + y rounded once")
+    ms = cuda_ms(lambda: fo.axpy2_cuda(x, y), iters=50)
+    plain_ms = cuda_ms(lambda: fo.smoke_plain(x, y), iters=50)
+    library_ms = cuda_ms(lambda: torch.add(y, x, alpha=2), iters=50)
+    bound = 3 * x.numel() * 2 / HBM_BYTES_PER_S * 1e3
+    log("K8 smoke", shape=list(x.shape), bit_equal=True, ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+        library_ms=f"{library_ms:.5f}", bound_ms=f"{bound:.6f}")
+    table.append(dict(name="axpy2_bf16", route="cuda", source="unidistill_torch/csrc/fused_offsets.cu",
+                      replaces="experiments/mb_pallas_fused.py:134", launches=launches["axpy2_bf16"],
+                      max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                      library_ms=library_ms))
+
+    # ---- K9-K11: the band gathers ------------------------------------------------
+    S, W, R, band = mb_gather_pallas.S, mb_gather_pallas.W, mb_gather_pallas.R, mb_gather_pallas.BAND
+    tab, idx, w = mb_gather_pallas.make_inputs(0, S, W, R, band, device=dev)
+    ref = bg.band_gather_plain(tab, idx, w, R, band)
+    src = bg.band_source_rows(idx, w, R, band).long()
+    # the bytes the gather needs: each distinct source row read once, the
+    # output written once, the indices and band starts read once
+    n_src = int(src.unique().numel())
+    nbytes = (n_src + ref.shape[0]) * W * 2 + idx.numel() * 4 + w.numel() * 4
+    for label, key, fn, replaces in (
+            ("K9 fori", "band_gather_fori", lambda: bg.band_gather_fori(tab, idx, w, R, band, unroll=1),
+             "experiments/mb_gather_pallas.py:140"),
+            ("K9 fori4", "band_gather_fori4", lambda: bg.band_gather_fori(tab, idx, w, R, band, unroll=4),
+             "experiments/mb_gather_pallas.py:140"),
+            ("K10 take", "band_gather_take", lambda: bg.band_gather_take(tab, idx, w, R, band),
+             "experiments/mb_gather_pallas.py:160"),
+            ("K11 onehot", "band_gather_onehot", lambda: bg.band_gather_onehot(tab, idx, w, R, band),
+             "experiments/mb_gather_pallas.py:184")):
+        got = fn()
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
+            bad = int((got != ref).any(1).sum().item())
+            raise RuntimeError(f"{label}: {bad} rows differ from the plain gather")
+        ms = cuda_ms(fn)
+        plain_ms = cuda_ms(lambda: bg.band_gather_plain(tab, idx, w, R, band))
+        library_ms = cuda_ms(lambda: tab.index_select(0, src))
+        ops = 2 * S * band * W if key == "band_gather_onehot" else 0
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+        log(label, rows=S, W=W, R=R, band=band, distinct_source_rows=n_src, bit_equal=True, ms=f"{ms:.4f}",
+            ns_per_row=f"{ms / S * 1e6:.3f}", plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+            bound_ms=f"{max(bytes_ms, ops_ms):.4f}", bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            bytes_ms=f"{bytes_ms:.4f}", ops_ms=f"{ops_ms:.4f}")
+        table.append(dict(name=key, route="cuda", source="unidistill_torch/csrc/band_gather.cu",
+                          replaces=replaces, launches=launches[key], max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                          bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                          library_ms=library_ms))
+    del tab, idx, w, ref, src, got
+    torch.cuda.empty_cache()
+
+    # ---- K7 on each stage's realistic inputs ------------------------------------
+    for st in MB_STAGES:
+        xs = inputs[st]
+        C = xs.C
+        tab = _window_table(xs.feats, xs.occ_bits, xs.colkey, xs.chunk, xs.valid, torch.bfloat16)
+        W6 = _band_weight(_w_zyx(xs.weight), C, C, 6, 1, torch.bfloat16)
+        g, oh = fo.offset_operands(tab, xs.tables, xs.S, C, torch.bfloat16)
+        W8 = W6[list(_OFFS8)].contiguous()
+        del tab, W6
+        got = fo.fused_offsets_cuda(g, oh, W8)
+        ref = fo.fused_offsets_plain(g, oh, W8)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        if not err <= K7_TOL_OF_MAX * scale:
+            raise RuntimeError(f"K7 at {st}: max |diff| {err:.3e} > {K7_TOL_OF_MAX} x max |ref| {scale:.3e}")
+        del ref
+        ms = cuda_ms(lambda: fo.fused_offsets_cuda(g, oh, W8))
+        plain_ms = cuda_ms(lambda: fo.fused_offsets_plain(g, oh, W8), iters=3)
+        case = oh.argmax(-1, keepdim=True)
+        g2 = torch.cat([torch.zeros_like(g[..., 0:4 * C]), g[..., 0:2 * C]], -1)
+
+        def library():  # the separate path's select and products, in bf16
+            win = torch.where(case == 0, g[..., 0:6 * C], torch.where(case == 1, g[..., 4 * C:], g2))
+            return torch.einsum("bosw,owk->bsk", win, W8)
+        library_ms = cuda_ms(library, iters=3)
+        del g2, case
+        B, _, Sn, _ = g.shape
+        # what this run's cases need of g: 6C lanes of a case-0 or case-1 row,
+        # 2C of a case-2 row (its other 4C window lanes are zero); the same
+        # nonzero lanes times 4co for the products
+        n_case = oh.reshape(-1, 4).sum(0, dtype=torch.int64).tolist()
+        lanes = 6 * C * (n_case[0] + n_case[1]) + 2 * C * n_case[2]
+        nbytes = lanes * 2 + oh.numel() * 2 + W8.numel() * 2 + got.numel() * 4
+        ops = 2 * lanes * W8.shape[2]
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        log(f"K7 fused_offsets {st}", B=B, S=Sn, C=C, co=C, rows_by_case=",".join(map(str, n_case)), max_abs_err=f"{err:.3e}",
+            max_abs_ref=f"{scale:.3e}", tol=f"{K7_TOL_OF_MAX}*max|ref|", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            library_ms=f"{library_ms:.4f}", bound_ms=f"{max(bytes_ms, ops_ms):.4f}", bound_by=bound_by,
+            bytes_ms=f"{bytes_ms:.4f}", ops_ms=f"{ops_ms:.4f}")
+        if st == "s2":
+            table.append(dict(name="fused_offsets", route="cuda", source="unidistill_torch/csrc/fused_offsets.cu",
+                              replaces="experiments/mb_pallas_fused.py:84", launches=launches["fused_offsets"],
+                              max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                              bound_by=bound_by, library_ms=library_ms))
+        del g, oh, W8, got
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -998,6 +1175,8 @@ def main() -> int:
     lidar_train_phases(dev, table)
     torch.cuda.empty_cache()
     fusion_phases(dev)
+    torch.cuda.empty_cache()
+    microbench_phases(dev, table)
 
     log("done", seconds=f"{time.time() - t_start:.1f}")
     print(json.dumps({"kernels": table}))

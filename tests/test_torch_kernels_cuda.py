@@ -24,14 +24,18 @@ plain version (f32 rtol/atol 1e-4 of the scale; bf16 2e-2 of the scale: dfeat
 rounds once to bf16, dW is summed over bf16-rounded g in another order)
 and against float64 central differences of the conv (f32, rtol 1e-3: the
 conv is linear, so the difference is exact up to float64 round-off; the
-kernels sum in float32).
+kernels sum in float32). The microbenchmark kernels: K7 (fused select +
+products) at 1e-5 of max |ref| (exact bf16 products summed in f32 in
+another order) and bit-equal on a rerun; K8 (2x + y in bf16) and the band
+gathers K9 (unroll 1 and 4), K10 and K11 bit-equal to their plain versions
+(each output of K11 is a sum with one nonzero term).
 """
 import numpy as np
 import pytest
 import torch
 
 from unidistill_torch.layers.lidar_encoder import DOWN_CONVS
-from unidistill_torch.ops import bev_pool, nms, sparse_conv
+from unidistill_torch.ops import band_gather, bev_pool, fused_offsets, nms, sparse_conv
 
 THR = 0.2
 
@@ -361,3 +365,112 @@ def test_sparse_conv_function_against_finite_differences(cuda_device):
         fd = (f(*[p + eps * d for p, d in zip(p64, v)]) - f(*[p - eps * d for p, d in zip(p64, v)])) / (2 * eps)
         an = sum((t.grad.double() * d).sum() for t, d in zip((xx, ww, bb), v))
         torch.testing.assert_close(an, fd, rtol=1e-3, atol=1e-6)
+
+
+# ---- the microbenchmark kernels: K7-K11 ------------------------------------
+
+
+def _fused_case(device, B, S, C, seed):
+    rng = np.random.default_rng(seed)
+    g = torch.from_numpy(rng.standard_normal((B, 8, S, 10 * C)) * 0.1).to(torch.bfloat16)
+    case = rng.integers(0, 4, (B, 8, S))  # case 3: an all-zero window
+    oh = torch.from_numpy(case[..., None] == np.arange(4)).to(torch.bfloat16)
+    W8 = torch.from_numpy(rng.standard_normal((8, 6 * C, 4 * C)) * 0.05).to(torch.bfloat16)
+    return [t.to(device) for t in (g, oh, W8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,C", [(1, 512, 16), (2, 1024, 32), (2, 1000, 64)],
+                         ids=["C16", "C32", "C64_ragged"])
+def test_fused_offsets_kernel_matches_plain(cuda_device, B, S, C):
+    from unidistill_torch.kernels import build
+    g, oh, W8 = _fused_case(cuda_device, B, S, C, seed=S + C)
+    before = build.LAUNCHES["fused_offsets"]
+    got = fused_offsets.fused_offsets(g, oh, W8)
+    assert build.LAUNCHES["fused_offsets"] == before + 1
+    ref = fused_offsets.fused_offsets_plain(g, oh, W8)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5 * ref.abs().max().item())
+    assert torch.equal(fused_offsets.fused_offsets(g, oh, W8), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256 * 256, 1001])
+def test_axpy2_kernel_is_bit_exact(cuda_device, n):
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.standard_normal(n + 1) * 4).to(torch.bfloat16).to(cuda_device)
+    y = torch.from_numpy(rng.standard_normal(n + 1) * 2.0 ** rng.integers(-20, 20, n + 1)).to(
+        torch.bfloat16).to(cuda_device)
+    for a, b in ((x[:n], y[:n]), (x[1:], y[1:])):  # aligned, and views off the 16-byte grid
+        got = fused_offsets.axpy2(a, b)
+        assert torch.equal(got.view(torch.int16), fused_offsets.smoke_plain(a, b).view(torch.int16))
+    assert fused_offsets.smoke(cuda_device) == 5.0
+
+
+def _band_case(device, S, W, R, band, n_tab, seed, dtype=torch.bfloat16):
+    """Indices anywhere in the table (many outside their block's band) and
+    band starts within the contract, for ragged S too."""
+    rng = np.random.default_rng(seed)
+    nblk = -(-S // R)
+    w = rng.integers(0, n_tab - band + 1, nblk).astype(np.int32)
+    idx = rng.integers(0, n_tab, S).astype(np.int32)
+    near = rng.random(S) < 0.7  # most indices inside the band
+    idx[near] = (w.repeat(R)[:S] + rng.integers(0, band, S))[near]
+    tab = torch.from_numpy(rng.standard_normal((n_tab, W)) * 0.1).to(dtype)
+    return tab.to(device), torch.from_numpy(idx).to(device), torch.from_numpy(w).to(device)
+
+
+BAND_CASES = [(2048, 128, 256, 512, 2048), (1024, 64, 128, 256, 1024), (1000, 200, 256, 512, 1500)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["fori", "fori4", "take", "onehot"])
+@pytest.mark.parametrize("S,W,R,band,n_tab", BAND_CASES, ids=["S2048", "S1024", "ragged"])
+def test_band_gather_kernels_are_bit_exact(cuda_device, variant, S, W, R, band, n_tab):
+    from unidistill_torch.kernels import build
+    tab, idx, w = _band_case(cuda_device, S, W, R, band, n_tab, seed=S + W)
+    fn = {"fori": lambda *a: band_gather.band_gather_fori(*a, unroll=1),
+          "fori4": lambda *a: band_gather.band_gather_fori(*a, unroll=4),
+          "take": band_gather.band_gather_take, "onehot": band_gather.band_gather_onehot}[variant]
+    counter = {"fori": "band_gather_fori", "fori4": "band_gather_fori4", "take": "band_gather_take",
+               "onehot": "band_gather_onehot"}[variant]
+    before = build.LAUNCHES[counter]
+    got = fn(tab, idx, w, R, band)
+    assert build.LAUNCHES[counter] == before + 1
+    ref = band_gather.band_gather_plain(tab, idx, w, R, band)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+    assert torch.equal(fn(tab, idx, w, R, band), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,W", [(torch.float32, 4), (torch.bfloat16, 8), (torch.bfloat16, 37)])
+def test_band_gather_copies_16_byte_rows_and_rejects_others(cuda_device, dtype, W):
+    """K9 and K10 move rows as 16-byte pieces; other rows raise."""
+    tab, idx, w = _band_case(cuda_device, 700, W, 128, 256, 900, seed=W, dtype=dtype)
+    fns = [lambda *a: band_gather.band_gather_fori(*a, unroll=1),
+           lambda *a: band_gather.band_gather_fori(*a, unroll=4), band_gather.band_gather_take]
+    if W * tab.element_size() % 16:
+        for fn in fns:
+            with pytest.raises(ValueError, match="16"):
+                fn(tab, idx, w, 128, 256)
+        return
+    ref = band_gather.band_gather_plain(tab, idx, w, 128, 256)
+    for fn in fns:
+        assert torch.equal(fn(tab, idx, w, 128, 256), ref)
+
+
+@pytest.mark.cuda
+def test_fused_subm_on_the_card(cuda_device):
+    """The fused conv (K7) against the separate path on the card, tiny
+    realistic inputs: within the bf16 roundings the separate path adds."""
+    from unidistill_torch.configs.nuscenes import tiny_model
+    from unidistill_torch.experiments.realistic import realistic_inputs
+    from unidistill_torch.ops.sparse_conv_chunked import _subm_impl
+    for x in realistic_inputs(tiny_model(with_camera=False), batch=2, device=cuda_device)[0].values():
+        got = fused_offsets.fused_subm(x.feats, x.occ_bits, x.colkey, x.chunk, x.valid, x.weight,
+                                       x.tables, x.C, x.C)
+        ref = _subm_impl(x.feats, x.occ_bits, x.colkey, x.chunk, x.valid, x.weight, None, x.tables,
+                         "bfloat16")
+        torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=2e-2 * ref.float().abs().max().item())

@@ -27,7 +27,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "unidistill_torch"
-SOURCES = ("bev_pool", "nms", "sparse_conv")
+SOURCES = ("bev_pool", "nms", "sparse_conv", "fused_offsets", "band_gather")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -40,7 +40,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 # C signatures: name -> (argtypes); every function returns int (cudaError_t)
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "bev_pool": {
         # cell, depth, ctx, out, n_rays, rays_per_batch, D, HW, C, ncells, stream
@@ -61,6 +61,18 @@ SIGNATURES = {
         "sparse_conv_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
         # feats, g, nbr, partial, dw, n_in, n_out, K, cin, cout, chunks, dtype, stream
         "sparse_conv_wgrad": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    },
+    "fused_offsets": {
+        # g, case_oh, w8, out, B, S, C, co4, stream
+        "fused_offsets": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+        # x, y, out, n, vec, stream
+        "axpy2_bf16": (_P, _P, _P, _L, _I, _P),
+    },
+    "band_gather": {
+        # tab, idx, w, out, n_tab, S, row_bytes, R, band, variant, stream
+        "band_gather_copy": (_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P),
+        # tab, idx, w, out, n_tab, S, W, R, band, stream
+        "band_gather_onehot": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
 }
 
