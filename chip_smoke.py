@@ -29,7 +29,10 @@ Phases, each printed on its own line:
            and sites per stage beside the JAX package's fixed-shape caps;
            K4 must launch 21 times a request, K2 and K3 once
   K4       each of the 21 recorded sparse convs of one request, K4 vs its
-           plain version: max error, kernel / plain / library / bound ms
+           plain version: max error, kernel / plain / library (one
+           `torch.mm` of a prebuilt im2col) / bound ms; the bf16 kernel's
+           dense-tile work (active (128-row tile, tap) pairs x 128 x Cin x
+           Cout) beside the pairs' work, and its TFLOP/s over the former
   lidar heads, lidar rois, lidar tiny   as heads, rois and tiny, for LiDAR
   distill train   the camera student (`camera_exp().model`, seeded random
            weights) learns from the frozen LiDAR teacher (`lidar_exp()
@@ -52,8 +55,11 @@ Phases, each printed on its own line:
            times, K1/K5 never
   K4 sparse_conv_dgrad, K6 sparse_conv_wgrad   each call of one recorded
            LiDAR train step, kernel vs plain version in bf16 and in f32:
-           max error, kernel / plain / library (`torch.mm` per tap on a
-           prebuilt gather) / bound ms, summed over the step
+           max error, kernel / plain / library (one call on a prebuilt
+           gather: `torch.mm` of the [N_in, K*Cout] im2col of g by the
+           stacked W^T for dgrad, `torch.bmm` of the [K, Cin, N] rows by g
+           for K6) / `torch.mm` per tap / bound ms, summed over the step;
+           for dgrad also the dense-tile work and TFLOP/s, as for K4
   distill camera->lidar   the LiDAR student from the frozen camera teacher
            (K1 once, K4 21 + 20 dgrad, K6 21 a step)
   lidar train tiny        as train tiny, for a small LiDAR detector
@@ -232,6 +238,21 @@ class PlainVersions:
 def max_err(got, ref):
     d = (got.float() - ref.float()).abs()
     return d.max().item(), (d / ref.float().abs().clamp_min(1e-6)).max().item()
+
+
+def k4_tile_work(nbr, n_in, cin, cout):
+    """The work K4's bf16 kernel does on a map, as float operations: every
+    row of a K4_TILE_ROWS-row tile runs the product of every tap that any
+    row of the tile reads (dense tiles), against what the pairs need. Cin
+    is padded to 16 as the wrapper pads it. Returns (active (tile, tap)
+    pairs, dense-tile flops, pair flops)."""
+    from unidistill_torch.ops import sparse_conv
+    T = sparse_conv.K4_TILE_ROWS
+    ok = (nbr >= 0) & (nbr < n_in)
+    ok = torch.cat([ok, ok.new_zeros(-ok.shape[0] % T, ok.shape[1])])
+    tile_taps = int(ok.reshape(-1, T, ok.shape[1]).any(1).sum().item())
+    cin_p = cin + -cin % 16
+    return tile_taps, 2 * tile_taps * T * cin_p * cout, 2 * int(ok.sum().item()) * cin * cout
 
 
 def serve(phase, det, cfg, batch_dev, recorders, want):
@@ -510,7 +531,8 @@ def lidar_phases(dev, table) -> None:
     names = ["conv_input"]
     for (down, *_), (stage, _) in zip(lidar_encoder.DOWN_CONVS, lidar_encoder.RES_STAGES):
         names += [f"{stage}{ab}.conv{c}" for ab in "ab" for c in (1, 2)] + [down]
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
+               dense_gflop=0.0, pair_gflop=0.0)
     worst = 0.0
     for name, ((f, nbr, w, b), _) in zip(names, conv_rec.calls):
         got = sparse_conv.sparse_conv_cuda(f, nbr, w, b)
@@ -535,17 +557,22 @@ def lidar_phases(dev, table) -> None:
         peak = BF16_OPS_PER_S if f.dtype == torch.bfloat16 else F32_OPS_PER_S
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, 2 * pairs * cin * cout / peak * 1e3
         bound = max(bytes_ms, ops_ms)
+        tile_taps, dense_flop, pair_flop = k4_tile_work(nbr, f.shape[0], cin, cout)
         log(f"K4 sparse_conv_fwd {name}", n_in=f.shape[0], n_out=nbr.shape[0], K=K, cin=cin, cout=cout,
-            pairs=pairs, max_abs_err=f"{abs_e:.3e}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            pairs=pairs, tile_taps=tile_taps, dense_gflop=f"{dense_flop / 1e9:.3f}",
+            pair_gflop=f"{pair_flop / 1e9:.3f}", dense_tflop_per_s=f"{dense_flop / ms / 1e9:.1f}",
+            max_abs_err=f"{abs_e:.3e}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
             library_ms=f"{library_ms:.4f}", bound_ms=f"{bound:.4f}",
             bound_by="bytes" if bytes_ms >= ops_ms else "operations")
         for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms), ("bound_ms", bound),
-                     ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+                     ("bytes_ms", bytes_ms), ("ops_ms", ops_ms), ("dense_gflop", dense_flop / 1e9),
+                     ("pair_gflop", pair_flop / 1e9)):
             tot[k] += v
     bound_by = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
     log("K4 sparse_conv_fwd", convs=len(names), dtype=str(conv_rec.calls[0][0][0].dtype),
         max_abs_err=f"{worst:.3e}", tol=f"rtol={K4_TOL_RTOL},atol={K4_TOL_ATOL_OF_MAX}*max|ref|",
-        **{f"{k}_per_request": f"{v:.4f}" for k, v in tot.items()}, bound_by=bound_by)
+        **{f"{k}_per_request": f"{v:.4f}" for k, v in tot.items()}, bound_by=bound_by,
+        dense_tflop_per_s=f"{tot['dense_gflop'] / tot['ms']:.1f}")
     table.append(dict(name="sparse_conv_fwd", route="cuda", source="unidistill_torch/csrc/sparse_conv.cu",
                       replaces="unidistill_tpu/ops/sparse_conv_pallas.py:128",
                       launches=launches["sparse_conv_fwd"], max_abs_err=worst, ms=tot["ms"],
@@ -778,7 +805,10 @@ def backward_kernel_phases(table, dgrad_calls, wgrad_calls, launches) -> None:
 
     for kernel, calls, labels in (("K4 sparse_conv_dgrad", dgrad_calls, names[:-1]),
                                   ("K6 sparse_conv_wgrad", wgrad_calls, names)):
-        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, library_per_tap_ms=0.0, bound_ms=0.0,
+                   bytes_ms=0.0, ops_ms=0.0)
+        if kernel.startswith("K4"):
+            tot.update(dense_gflop=0.0, pair_gflop=0.0)
         worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
         for name, (args, _) in zip(labels, calls):
             args = [t.detach() for t in args]  # the saved weight is part of the graph
@@ -796,6 +826,7 @@ def backward_kernel_phases(table, dgrad_calls, wgrad_calls, launches) -> None:
                 worst[dt] = max(worst[dt], max_err(got, ref)[0])
             ms = cuda_ms(lambda: fn(*args))
             plain_ms = cuda_ms(lambda: plain(*args), iters=3)
+            dense = {}
             if dgrad:  # out[i] = Σ_k W[k]·g[nbr_t[i, k]]
                 g, nbr, w = args
                 K, cin, cout = w.shape
@@ -804,12 +835,23 @@ def backward_kernel_phases(table, dgrad_calls, wgrad_calls, launches) -> None:
                 gath = src[torch.where(nbr < 0, g.shape[0], nbr).long().t()]  # [K, N_in, Cout]
                 wt = w.transpose(1, 2).contiguous()
                 out = torch.empty(n_in, cin, dtype=g.dtype, device=g.device)
+                im2col = gath.transpose(0, 1).reshape(n_in, K * cout)  # [N_in, K·Cout]
+                wstack = wt.reshape(K * cout, cin)                      # [K·Cout, Cin]
 
-                def library():
+                def library():  # one call, as the forward's yardstick
+                    torch.mm(im2col, wstack, out=out)
+
+                def library_per_tap():
                     torch.mm(gath[0], wt[0], out=out)
                     for k in range(1, K):
                         out.addmm_(gath[k], wt[k])
                 nbytes = (g.numel() + w.numel() + n_in * cin) * esize + nbr.numel() * 4
+                # K4's view: the rows are inputs, its Cin the conv's Cout
+                tile_taps, dense_flop, pair_flop = k4_tile_work(nbr, g.shape[0], cout, cin)
+                dense = dict(tile_taps=tile_taps, dense_gflop=f"{dense_flop / 1e9:.3f}",
+                             pair_gflop=f"{pair_flop / 1e9:.3f}", dense_tflop_per_s=f"{dense_flop / ms / 1e9:.1f}")
+                tot["dense_gflop"] += dense_flop / 1e9
+                tot["pair_gflop"] += pair_flop / 1e9
             else:  # dW[k] = Σ_o x[nbr[o, k]]ᵀ·g[o]
                 x, g, nbr = args
                 K, cin, cout = nbr.shape[1], x.shape[1], g.shape[1]
@@ -817,27 +859,34 @@ def backward_kernel_phases(table, dgrad_calls, wgrad_calls, launches) -> None:
                 src = torch.cat([x, x.new_zeros(1, cin)])
                 gath = src[torch.where(nbr < 0, x.shape[0], nbr).long().t()].transpose(1, 2)  # [K, Cin, N]
                 out = torch.empty(K, cin, cout, dtype=g.dtype, device=g.device)
+                gk = g.expand(K, *g.shape)
 
-                def library():
+                def library():  # one call: the gathered rows of every tap by g
+                    torch.bmm(gath, gk, out=out)
+
+                def library_per_tap():
                     for k in range(K):
                         torch.mm(gath[k], g, out=out[k])
                 nbytes = (x.numel() + g.numel()) * esize + nbr.numel() * 4 + K * cin * cout * 4
             library_ms = cuda_ms(library, iters=5)
+            per_tap_ms = cuda_ms(library_per_tap, iters=5)
             del gath, src, out
             pairs = int((nbr >= 0).sum().item())
             bytes_ms, ops_ms = bound(nbytes, 2 * pairs * cin * cout, args[0].dtype)
-            log(f"{kernel} {name}", rows=nbr.shape[0], K=K, cin=cin, cout=cout, pairs=pairs,
+            log(f"{kernel} {name}", rows=nbr.shape[0], K=K, cin=cin, cout=cout, pairs=pairs, **dense,
                 ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
-                bound_ms=f"{max(bytes_ms, ops_ms):.4f}")
+                library_per_tap_ms=f"{per_tap_ms:.4f}", bound_ms=f"{max(bytes_ms, ops_ms):.4f}")
             for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
-                         ("bound_ms", max(bytes_ms, ops_ms)), ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+                         ("library_per_tap_ms", per_tap_ms), ("bound_ms", max(bytes_ms, ops_ms)),
+                         ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
                 tot[k] += v
         bound_by = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
         tol = K4_DGRAD_TOL if kernel.startswith("K4") else {dt: K6_TOL for dt in worst}
+        rate = {"dense_tflop_per_s": f"{tot['dense_gflop'] / tot['ms']:.1f}"} if "dense_gflop" in tot else {}
         log(kernel, convs=len(calls), max_abs_err_bf16=f"{worst[torch.bfloat16]:.3e}",
             max_abs_err_f32=f"{worst[torch.float32]:.3e}",
             tol="; ".join(f"{dt}: rtol={r},atol={a}*max|ref|" for dt, (r, a) in tol.items()),
-            **{f"{k}_per_step": f"{v:.4f}" for k, v in tot.items()}, bound_by=bound_by)
+            **{f"{k}_per_step": f"{v:.4f}" for k, v in tot.items()}, bound_by=bound_by, **rate)
         key = "sparse_conv_dgrad" if kernel.startswith("K4") else "sparse_conv_wgrad"
         table.append(dict(name=key, route="cuda", source="unidistill_torch/csrc/sparse_conv.cu",
                           replaces="unidistill_tpu/ops/sparse_conv_pallas.py:279", launches=launches[key],

@@ -15,7 +15,9 @@ by an ulp); K2 mask bits and K3 keep sets exactly (no IoU within 1e-4 of
 the threshold in these inputs); K4 in float32 rtol/atol 1e-4 (up to 27·128
 products summed in another order), in bfloat16 rtol 1e-2 (kernel and plain
 version both sum in f32 and round once; the other order may flip that
-rounding by one bf16 ulp, at most 2^-7 of the value). The sparse conv's
+rounding by one bf16 ulp, at most 2^-7 of the value; the bf16 instance
+multiplies on the tensor cores, whose bf16 products are exact in f32 as
+the plain version's are). The sparse conv's
 backward: K6 (dW) against its plain version at 1e-4 of max |ref| in float32
 and in bfloat16 (bf16 products are exact in f32, so only the summation order
 differs; empty tiles and taps give exact zeros); K4 as the input gradient on
@@ -233,6 +235,81 @@ def test_sparse_conv_kernel_on_rulebooks(cuda_device):
 # widths, down2, down3, down4, conv_out
 ENCODER_CONVS = [(27, 5, 16), (27, 16, 16), (27, 32, 32), (27, 64, 64), (27, 128, 128),
                  (27, 16, 32), (27, 32, 64), (27, 64, 128), (3, 128, 128)]
+
+
+def _k4_case(device, n_in, n_out, K, cin, cout, seed):
+    """bf16 inputs of K4 from numpy: half the map's entries -1, every 7th
+    row's first tap at input n_in - 1; with more than three tiles of rows,
+    tile 1 has no active tap and tile 2 only its last tap."""
+    rng = np.random.default_rng(seed)
+    nbr = rng.integers(0, n_in, (n_out, K)).astype(np.int32)
+    nbr[rng.random((n_out, K)) < 0.5] = -1
+    nbr[::7, 0] = n_in - 1
+    T = sparse_conv.K4_TILE_ROWS
+    if n_out > 3 * T:
+        nbr[T:2 * T] = -1
+        nbr[2 * T:3 * T, :-1] = -1
+    feats = rng.standard_normal((n_in, cin))
+    w = rng.standard_normal((K, cin, cout)) * (1.0 / (K * cin)) ** 0.5
+    bias = rng.standard_normal(cout)
+    to = lambda a: torch.from_numpy(a).to(device, torch.bfloat16)
+    return to(feats), torch.from_numpy(nbr).to(device), to(w), to(bias)
+
+
+def _k4_bf16_check(role, feats, nbr, w, bias):
+    """K4 in bf16 as the forward (feats, w [K, cin, cout], bias) or as the
+    input gradient (g = feats, the conv's weight w.transpose(1, 2), no bias)
+    against its plain version; returns the kernel's result."""
+    from unidistill_torch.kernels import build
+    name = "sparse_conv_fwd" if role == "fwd" else "sparse_conv_dgrad"
+    before = build.LAUNCHES[name]
+    if role == "fwd":
+        got, ref = sparse_conv.sparse_conv_cuda(feats, nbr, w, bias), sparse_conv.sparse_conv_plain(feats, nbr, w, bias)
+    else:
+        wc = w.transpose(1, 2).contiguous()  # the conv's [K, Cin, Cout] weight, read untransposed
+        got, ref = sparse_conv.sparse_conv_dgrad_cuda(feats, nbr, wc), sparse_conv.sparse_conv_dgrad_plain(feats, nbr, wc)
+    assert build.LAUNCHES[name] == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    torch.testing.assert_close(got.float(), ref.float(), rtol=1e-2, atol=1e-5)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("role,K,cin,cout", [("fwd", *c) for c in ENCODER_CONVS]
+                         + [("dgrad", K, cout, cin) for K, cin, cout in ENCODER_CONVS[1:]])
+def test_sparse_conv_bf16_kernel_at_encoder_shapes(cuda_device, role, K, cin, cout):
+    """K4's tensor-core instance at every forward shape of the encoder and
+    every input-gradient shape (the kernel's Cin is the conv's Cout; the
+    weight is read as Wᵀ in place), 1000 rows (not a whole number of tiles):
+    tile 1 (no active tap) is the bias alone, tile 2 has one active tap."""
+    feats, nbr, w, bias = _k4_case(cuda_device, 1500, 1000, K, cin, cout, seed=K + cin + cout)
+    got = _k4_bf16_check(role, feats, nbr, w, bias if role == "fwd" else None)
+    T = sparse_conv.K4_TILE_ROWS
+    expect = bias.float().expand(T, cout) if role == "fwd" else torch.zeros(T, cout, device=cuda_device)
+    assert torch.equal(got[T:2 * T].float(), expect.to(torch.bfloat16).float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("role", ["fwd", "dgrad"])
+def test_sparse_conv_bf16_kernel_with_fewer_inputs_than_a_tile(cuda_device, role):
+    """50 input rows (fewer than one tile), 300 output rows, neighbours up to
+    the last input row."""
+    feats, nbr, w, bias = _k4_case(cuda_device, 50, 300, 27, 32, 16, seed=9)
+    assert int(nbr.max()) == 49
+    _k4_bf16_check(role, feats, nbr, w, bias if role == "fwd" else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("role,cin,cout", [("fwd", 128, 128), ("dgrad", 64, 32), ("fwd", 16, 16)])
+def test_sparse_conv_bf16_kernel_is_deterministic(cuda_device, role, cin, cout):
+    """Two runs over 20 000 rows are bit-equal (each row owned by one block,
+    taps in a fixed order)."""
+    feats, nbr, w, bias = _k4_case(cuda_device, 20000, 20000, 27, cin, cout, seed=cin * cout)
+    bias = bias if role == "fwd" else None
+    a = _k4_bf16_check(role, feats, nbr, w, bias)
+    b = _k4_bf16_check(role, feats, nbr, w, bias)
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
 @pytest.mark.cuda

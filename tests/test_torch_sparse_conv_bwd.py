@@ -219,3 +219,15 @@ def test_sparse_conv_function_skips_the_input_gradient(plain_kernels):
     w = torch.from_numpy(weights(27, 8, 16, 50)).requires_grad_(True)
     sc.SparseConv.apply(pst.features, nbr, w, None, None).sum().backward()
     assert plain_kernels == ["fwd", "wgrad"] and w.grad is not None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_dgrad_wrapper_refuses_cpu_tensors(dtype):
+    """The input gradient's wrapper launches K4 or raises: it has no plain
+    fallback for tensors off the card, in either dtype's weight layout."""
+    _, pst, _ = voxel_set(S3, seed=51)
+    nbr_t = sc.transpose_rules(sc.subm_rules(pst), pst.keys.numel())
+    g = torch.from_numpy(cotangent(nbr_t.shape[0], 16, 52)).to(dtype)
+    w = torch.from_numpy(weights(27, 16, 16, 53)).to(dtype)
+    with pytest.raises(ValueError, match="CUDA"):
+        sc.sparse_conv_dgrad_cuda(g, nbr_t, w)

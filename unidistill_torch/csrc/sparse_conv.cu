@@ -18,7 +18,47 @@
 // [3*block, window] one-hot mask on the vector unit and multiplied it on the
 // MXU, because the TPU has no vector gather. Hopper gathers natively, so the
 // neighbour map is built once per stage (ops/sparse_conv.py) and the kernel
-// gathers rows directly:
+// gathers rows directly. Each dtype has its own kernel.
+//
+// bf16 (`sparse_conv_tc_kernel`): a gathered implicit GEMM on the tensor
+// cores.
+//   * one block of 4 warps owns 128 output rows and all of cout (16, 32, 64
+//     or 128, one instance each); each warp holds a 32 x cout tile of f32
+//     sums in registers;
+//   * the tile's nbr rows are loaded into shared memory once (all of a
+//     thread's loads in flight together), and a 27-bit mask of the taps with
+//     any neighbour in the tile is OR-reduced once; the tap loop walks only
+//     those taps, in increasing order;
+//   * a pipeline step is (active tap, chunk of kc = 64, 32 or 16 input
+//     channels): the tile's rows at that tap are copied straight from device
+//     memory (L1/L2 serve the reuse between taps) into shared memory in bf16
+//     with 16-byte cp.async, zero-filled where nbr = -1 (src-size 0), and
+//     W_k's [kc x cout] slice beside them; rows are padded by 16 bytes so
+//     that ldmatrix is free of bank conflicts. Two stages and one barrier a
+//     step: step s+1's copies are in flight while step s's products run;
+//   * products are bf16 mma.sync m16n8k16 with f32 sums, A from ldmatrix, B
+//     from ldmatrix.trans ([kc][cout] rows); for the input gradient the
+//     kernel reads the untransposed [K, cout, cin] weight as W^T with a
+//     plain ldmatrix (w_layout 1), so the wrapper copies no transpose;
+//   * the epilogue adds the bias in f32, rounds once to bf16, stages the tile
+//     in shared memory and stores it with 16-byte stores. Every output row is
+//     owned by one block and the taps run in a fixed order: no atomics, and a
+//     rerun is bit-identical.
+// What bounds it on an H100 (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py):
+// at 64 and 128 channels the dense-tile mma work (every row of a tile runs
+// the product of every active tap; with key-sorted rows nearly every tap is
+// active in nearly every tile, so a LiDAR request runs about 1.8x the work
+// its pairs need) at 160-210 TFLOP/s; at 16 and 32 channels the nbr map
+// (108 bytes a row, more than the row itself) and the gathers, each row
+// copied into shared memory once per tap, at 30-90 TFLOP/s. Measured and
+// no better by more than noise: 3 to 6 stages, 64- or 256-row blocks,
+// visiting the taps dz-minor (L1 reuse of the rows), cp.async.cg. Left for
+// later: sorting rows by tap mask so that tiles carry fewer inactive rows
+// (spconv v2's mask split), wgmma (TMA cannot gather rows), and a
+// persistent schedule that overlaps one tile's epilogue with the next
+// tile's loads.
+//
+// f32 (`sparse_conv_fwd_kernel<float, COUT>`), for the f32 steps and checks:
 //   * one block owns a tile of 64 output rows and loads the tile's nbr
 //     entries into shared memory once;
 //   * per tap, a tap with no neighbour anywhere in the tile is skipped
@@ -28,13 +68,8 @@
 //   * each thread keeps a 4-channel x (cout/16)-row block of the f32 sums in
 //     registers; every output row is owned by one block, so there are no
 //     atomics and the result is deterministic.
-//
-// What bounds it on an H100: at the stride-1 stages with 16 and 32 channels
-// the bytes (the 27-entry map is 108 bytes a row, more than the row itself)
-// bound the work; at 64 and 128 channels the multiply-adds do. This simple
-// kernel runs them on the CUDA cores in f32 and does a dense 64-row product
-// for every tap that has any neighbour in the tile, so at the wide stages it
-// is far from the tensor-core bound; mma/wgmma tiles and TMA are later work.
+// It runs the products on the CUDA cores in f32, a dense 64-row product for
+// every tap that has any neighbour in the tile.
 //
 // The input gradient of a conv (the first half of the JAX custom VJP
 // `_subm_bwd`, sparse_conv_pallas.py:279-286, which re-runs the Pallas kernel
@@ -98,12 +133,6 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* dst) {
 
 __device__ __forceinline__ void store4(float* p, const float* v) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
-  __nv_bfloat162 h[2] = {__floats2bfloat162_rn(v[0], v[1]),
-                         __floats2bfloat162_rn(v[2], v[3])};
-  *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(h);
 }
 
 template <typename T, int COUT>
@@ -208,32 +237,302 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-int launch(const void* feats, const int* nbr, const void* w, const float* bias,
-           void* out, int n_in, int n_out, int K, int cin, int cout,
-           cudaStream_t stream) {
+int launch_f32(const void* feats, const int* nbr, const void* w, const float* bias,
+               void* out, int n_in, int n_out, int K, int cin, int cout,
+               cudaStream_t stream) {
   const dim3 grid((n_out + kTile - 1) / kTile);
   const dim3 block(kThreads);
-  const T* f = static_cast<const T*>(feats);
-  const T* wt = static_cast<const T*>(w);
-  T* o = static_cast<T*>(out);
+  const float* f = static_cast<const float*>(feats);
+  const float* wt = static_cast<const float*>(w);
+  float* o = static_cast<float*>(out);
   switch (cout) {
     case 16:
-      sparse_conv_fwd_kernel<T, 16><<<grid, block, 0, stream>>>(f, nbr, wt, bias, o, n_in, n_out, K, cin);
+      sparse_conv_fwd_kernel<float, 16><<<grid, block, 0, stream>>>(f, nbr, wt, bias, o, n_in, n_out, K, cin);
       break;
     case 32:
-      sparse_conv_fwd_kernel<T, 32><<<grid, block, 0, stream>>>(f, nbr, wt, bias, o, n_in, n_out, K, cin);
+      sparse_conv_fwd_kernel<float, 32><<<grid, block, 0, stream>>>(f, nbr, wt, bias, o, n_in, n_out, K, cin);
       break;
     case 64:
-      sparse_conv_fwd_kernel<T, 64><<<grid, block, 0, stream>>>(f, nbr, wt, bias, o, n_in, n_out, K, cin);
+      sparse_conv_fwd_kernel<float, 64><<<grid, block, 0, stream>>>(f, nbr, wt, bias, o, n_in, n_out, K, cin);
       break;
     case 128:
-      sparse_conv_fwd_kernel<T, 128><<<grid, block, 0, stream>>>(f, nbr, wt, bias, o, n_in, n_out, K, cin);
+      sparse_conv_fwd_kernel<float, 128><<<grid, block, 0, stream>>>(f, nbr, wt, bias, o, n_in, n_out, K, cin);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// ---- bf16: the gathered implicit GEMM on the tensor cores -------------------
+
+constexpr int kTcWarps = 4;
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kTcWarpRows = 32;                  // output rows a warp owns (two m16 tiles)
+constexpr int kTcRows = kTcWarps * kTcWarpRows;  // output rows a block owns
+constexpr int kTcMaxKc = 64;                     // input channels a pipeline step stages
+constexpr int kTcStages = 2;
+
+// input channels a step stages: the largest of 64, 32, 16 that divides cin
+__host__ __device__ constexpr int tc_chunk(int cin) {
+  return cin % 64 == 0 ? 64 : (cin % 32 == 0 ? 32 : 16);
+}
+
+// dynamic shared memory of one instance: two stages of (A [rows][kc + 8],
+// B [kc][cout + 8], or [cout][kc + 8] for w_layout 1), and the epilogue's
+// [rows][cout + 8] tile, which reuses them
+template <int COUT, bool WT>
+__host__ __device__ constexpr int tc_smem_bytes(int kc) {
+  const int a = kTcRows * (kc + 8);
+  const int b = WT ? COUT * (kc + 8) : kc * (COUT + 8);
+  const int pipe = kTcStages * (a + b) * 2;
+  const int epi = kTcRows * (COUT + 8) * 2;
+  return pipe > epi ? pipe : epi;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared; zero-filled (nothing read) if !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// wait until at most N of this thread's copy groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// WT: w is [K, COUT, cin] (the untransposed weight of the conv whose input
+// gradient this is) and is read as its transpose; else w is [K, cin, COUT].
+template <int COUT, bool WT>
+__global__ void __launch_bounds__(kTcThreads)
+    sparse_conv_tc_kernel(const __nv_bfloat16* __restrict__ feats,
+                          const int* __restrict__ nbr,
+                          const __nv_bfloat16* __restrict__ w,
+                          const float* __restrict__ bias,
+                          __nv_bfloat16* __restrict__ out, int n_in, int n_out,
+                          int K, int cin) {
+  constexpr int kNT = COUT / 8;   // n8 tiles of a warp
+  constexpr int kBS = COUT + 8;   // staged row of W_k (w_layout 0) and of the output tile
+  constexpr int kMT = kTcWarpRows / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_nbr[kTcRows * kMaxTaps];
+  __shared__ unsigned s_mask;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const long long row0 = (long long)blockIdx.x * kTcRows;
+  const int kc = tc_chunk(cin);
+  const int lg_pr = kc == 64 ? 3 : (kc == 32 ? 2 : 1);  // log2 of the 16-byte pieces of a staged row
+  const int nch = cin / kc;
+  const int as = kc + 8;  // staged row of A (and of W_k^T for w_layout 1)
+  const int a_elems = kTcRows * as;
+  const int b_elems = WT ? COUT * as : kc * kBS;
+  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sB = sA + kTcStages * a_elems;
+
+  // the tile's map, and the taps with any neighbour in the tile; all of a
+  // thread's loads are in flight before any is used
+  constexpr int kNbrPer = kTcRows * kMaxTaps / kTcThreads;
+  if (tid == 0) s_mask = 0u;
+  const long long base = row0 * K;
+  const long long end = (long long)n_out * K;
+  int v[kNbrPer];
+#pragma unroll
+  for (int j = 0; j < kNbrPer; ++j) {
+    const int i = tid + j * kTcThreads;
+    v[j] = (i < kTcRows * K && base + i < end) ? __ldg(nbr + base + i) : -1;
+  }
+  unsigned mine = 0u;
+  int col = tid % K;  // tap of entry tid + j * kTcThreads
+  const int col_step = kTcThreads % K;
+#pragma unroll
+  for (int j = 0; j < kNbrPer; ++j) {
+    const int i = tid + j * kTcThreads;
+    const int x = v[j] < n_in ? v[j] : -1;
+    if (i < kTcRows * K) s_nbr[i] = x;
+    if (x >= 0) mine |= 1u << col;
+    col += col_step;
+    if (col >= K) col -= K;
+  }
+  __syncthreads();
+  mine = __reduce_or_sync(0xffffffffu, mine);
+  if (lane == 0 && mine) atomicOr(&s_mask, mine);
+  __syncthreads();
+  const unsigned mask = s_mask;
+  const int steps = __popc(mask) * nch;
+
+  // stage step (tap, c0) into buffer buf
+  auto load_step = [&](int tap, int c0, int buf) {
+    const int pr = 1 << lg_pr;
+    const uint32_t a = smem_addr(sA + buf * a_elems);
+    for (int i = tid; i < kTcRows * pr; i += kTcThreads) {
+      const int r = i >> lg_pr, p = i & (pr - 1);
+      const int src = s_nbr[r * K + tap];
+      const __nv_bfloat16* g = feats + (long long)(src >= 0 ? src : 0) * cin + c0 + p * 8;
+      cp_async16(a + (r * as + p * 8) * 2, g, src >= 0);
+    }
+    const uint32_t b = smem_addr(sB + buf * b_elems);
+    if constexpr (WT) {  // row n of W_k^T: w[tap, n, c0:c0+kc]
+      for (int i = tid; i < COUT * pr; i += kTcThreads) {
+        const int n = i >> lg_pr, p = i & (pr - 1);
+        cp_async16(b + (n * as + p * 8) * 2, w + ((long long)tap * COUT + n) * cin + c0 + p * 8, true);
+      }
+    } else {  // row j of W_k's slice: w[tap, c0 + j, :]
+      for (int i = tid; i < kc * (COUT / 8); i += kTcThreads) {
+        const int j = i / (COUT / 8), p = i - j * (COUT / 8);
+        cp_async16(b + (j * kBS + p * 8) * 2, w + ((long long)tap * cin + c0 + j) * COUT + p * 8, true);
+      }
+    }
+  };
+
+  float acc[kMT][kNT][4];
+#pragma unroll
+  for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kNT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  // the load cursor walks the active taps in increasing order, nch chunks each
+  unsigned rest = mask;
+  int tap = 0, c0 = cin;
+  auto load_next = [&](int step) {
+    if (c0 + kc < cin) {
+      c0 += kc;
+    } else {
+      c0 = 0;
+      tap = __ffs(rest) - 1;
+      rest &= rest - 1;
+    }
+    load_step(tap, c0, step % kTcStages);
+  };
+#pragma unroll
+  for (int j = 0; j < kTcStages - 1; ++j) {
+    if (j < steps) load_next(j);
+    cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<kTcStages - 2>();  // step s's copies have landed
+    __syncthreads();                 // ... for every thread, and step s-1's buffer is free
+    if (s + kTcStages - 1 < steps) load_next(s + kTcStages - 1);
+    cp_async_commit();
+    const uint32_t a = smem_addr(sA + (s % kTcStages) * a_elems);
+    const uint32_t b = smem_addr(sB + (s % kTcStages) * b_elems);
+#pragma unroll
+    for (int kk = 0; kk < kTcMaxKc / 16; ++kk) {
+      if (kk * 16 >= kc) break;
+      uint32_t af[kMT][4];
+#pragma unroll
+      for (int mi = 0; mi < kMT; ++mi) {
+        const int r = warp * kTcWarpRows + mi * 16 + (lane & 15);
+        ldmatrix_x4(af[mi], a + (r * as + kk * 16 + (lane >> 4) * 8) * 2);
+      }
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        // matrices: (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15)
+        uint32_t bf[4];
+        if constexpr (WT) {
+          const int n = np * 16 + (lane >> 4) * 8 + (lane & 7);
+          ldmatrix_x4(bf, b + (n * as + kk * 16 + ((lane >> 3) & 1) * 8) * 2);
+        } else {
+          const int k = kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+          ldmatrix_x4_trans(bf, b + (k * kBS + np * 16 + (lane >> 4) * 8) * 2);
+        }
+#pragma unroll
+        for (int mi = 0; mi < kMT; ++mi) {
+          mma_bf16(acc[mi][2 * np], af[mi], bf[0], bf[1]);
+          mma_bf16(acc[mi][2 * np + 1], af[mi], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the stages, which the epilogue reuses
+
+  // epilogue: + bias in f32, one rounding, the tile staged for 16-byte stores
+  __nv_bfloat16* so = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int ni = 0; ni < kNT; ++ni) {
+    const int c = ni * 8 + 2 * tig;
+    const float b0 = bias != nullptr ? bias[c] : 0.f;
+    const float b1 = bias != nullptr ? bias[c + 1] : 0.f;
+#pragma unroll
+    for (int mi = 0; mi < kMT; ++mi) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = warp * kTcWarpRows + mi * 16 + gid + 8 * h;
+        *reinterpret_cast<__nv_bfloat162*>(so + r * kBS + c) =
+            __floats2bfloat162_rn(acc[mi][ni][2 * h] + b0, acc[mi][ni][2 * h + 1] + b1);
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < kTcRows * (COUT / 8); i += kTcThreads) {
+    const int r = i / (COUT / 8), p = i - r * (COUT / 8);
+    const long long row = row0 + r;
+    if (row < n_out)
+      *reinterpret_cast<uint4*>(out + row * COUT + p * 8) =
+          *reinterpret_cast<const uint4*>(so + r * kBS + p * 8);
+  }
+}
+
+template <int COUT, bool WT>
+int launch_tc_inst(const void* feats, const int* nbr, const void* w, const float* bias,
+                   void* out, int n_in, int n_out, int K, int cin, cudaStream_t stream) {
+  // once per instance: allow the most dynamic shared memory it can ask for
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      sparse_conv_tc_kernel<COUT, WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tc_smem_bytes<COUT, WT>(kTcMaxKc));
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((unsigned)((n_out + kTcRows - 1) / kTcRows));
+  sparse_conv_tc_kernel<COUT, WT><<<grid, kTcThreads, tc_smem_bytes<COUT, WT>(tc_chunk(cin)), stream>>>(
+      static_cast<const __nv_bfloat16*>(feats), nbr, static_cast<const __nv_bfloat16*>(w), bias,
+      static_cast<__nv_bfloat16*>(out), n_in, n_out, K, cin);
+  return (int)cudaGetLastError();
+}
+
+template <bool WT>
+int launch_tc(const void* feats, const int* nbr, const void* w, const float* bias,
+              void* out, int n_in, int n_out, int K, int cin, int cout,
+              cudaStream_t stream) {
+  switch (cout) {
+    case 16:
+      return launch_tc_inst<16, WT>(feats, nbr, w, bias, out, n_in, n_out, K, cin, stream);
+    case 32:
+      return launch_tc_inst<32, WT>(feats, nbr, w, bias, out, n_in, n_out, K, cin, stream);
+    case 64:
+      return launch_tc_inst<64, WT>(feats, nbr, w, bias, out, n_in, n_out, K, cin, stream);
+    case 128:
+      return launch_tc_inst<128, WT>(feats, nbr, w, bias, out, n_in, n_out, K, cin, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 constexpr int kWRows = 32;  // output rows a K6 block stages per step
@@ -400,17 +699,23 @@ int launch_wgrad(const void* feats, const void* g, const int* nbr, float* partia
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. cin a multiple of 16, cout one of 16, 32,
-// 64, 128, K <= 27; bias may be null.
+// dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the tensor-core
+// kernel). cin a multiple of 16, cout one of 16, 32, 64, 128, K <= 27; bias
+// may be null. w_layout 0: w is [K, cin, cout]; 1 (bfloat16 only): w is
+// [K, cout, cin] and is read as its transpose.
 extern "C" int sparse_conv_fwd(const void* feats, const int* nbr, const void* w,
                                const float* bias, void* out, int n_in,
                                int n_out, int K, int cin, int cout, int dtype,
-                               void* stream) {
+                               int w_layout, void* stream) {
   if (K < 1 || K > kMaxTaps || cin < 16 || cin % 16 != 0) return (int)cudaErrorInvalidValue;
+  if (w_layout != 0 && (w_layout != 1 || dtype != 1)) return (int)cudaErrorInvalidValue;
   if (n_out <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch<float>(feats, nbr, w, bias, out, n_in, n_out, K, cin, cout, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(feats, nbr, w, bias, out, n_in, n_out, K, cin, cout, s);
+  if (dtype == 0) return launch_f32(feats, nbr, w, bias, out, n_in, n_out, K, cin, cout, s);
+  if (dtype == 1) {
+    return w_layout ? launch_tc<true>(feats, nbr, w, bias, out, n_in, n_out, K, cin, cout, s)
+                    : launch_tc<false>(feats, nbr, w, bias, out, n_in, n_out, K, cin, cout, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -57,8 +57,8 @@ SIGNATURES = {
         "nms_greedy_select": (_P, _P, _P, _P, _I, _I, _I, _P),
     },
     "sparse_conv": {
-        # feats, nbr, w, bias (or None), out, n_in, n_out, K, cin, cout, dtype, stream
-        "sparse_conv_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        # feats, nbr, w, bias (or None), out, n_in, n_out, K, cin, cout, dtype, w_layout, stream
+        "sparse_conv_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
         # feats, g, nbr, partial, dw, n_in, n_out, K, cin, cout, chunks, dtype, stream
         "sparse_conv_wgrad": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     },

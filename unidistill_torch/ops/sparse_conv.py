@@ -57,6 +57,7 @@ from unidistill_torch.kernels import build
 Shape3 = Tuple[int, int, int]
 K4_COUTS = (16, 32, 64, 128)
 K4_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+K4_TILE_ROWS = 128  # output rows a block of K4's bf16 kernel owns (`kTcRows` in csrc/sparse_conv.cu)
 K6_CHANNELS = (16, 32, 64, 128)  # Cin (after padding to 16) and Cout
 # K6 splits the output rows of each tap into at most K6_MAX_CHUNKS chunks of
 # whole K6_ROWS-row tiles (`kWRows` in csrc/sparse_conv.cu); one block per
@@ -255,9 +256,12 @@ def _pad16(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def _launch_k4(name: str, features: torch.Tensor, nbr: torch.Tensor, weight: torch.Tensor,
-               bias: Optional[torch.Tensor]) -> torch.Tensor:
-    """One launch of K4, counted under `name` (none for an empty map)."""
-    K, cin, cout = weight.shape
+               bias: Optional[torch.Tensor], transposed: bool = False) -> torch.Tensor:
+    """One launch of K4, counted under `name` (none for an empty map). With
+    `transposed` the conv's weight is `weight.transpose(1, 2)`: the bf16
+    kernel reads it so (w_layout 1), the f32 kernel from a transposed copy."""
+    w = weight.transpose(1, 2) if transposed else weight
+    K, cin, cout = w.shape
     _check_conv_args(name, features, nbr, K, cin)
     if not weight.is_cuda or weight.dtype != features.dtype:
         raise ValueError(f"{name}: weight must be a CUDA tensor of the features' dtype {features.dtype}")
@@ -271,13 +275,15 @@ def _launch_k4(name: str, features: torch.Tensor, nbr: torch.Tensor, weight: tor
     out = torch.empty(nbr.shape[0], cout, dtype=features.dtype, device=features.device)
     if out.shape[0] == 0:  # nothing to launch
         return out
-    features, weight, nbr = _pad16(features, 1), _pad16(weight, 2), nbr.contiguous()
+    w_layout = int(transposed and features.dtype == torch.bfloat16)
+    features, nbr = _pad16(features, 1), nbr.contiguous()
+    w = _pad16(weight, 1) if w_layout else _pad16(w, 2)
     lib = build.library("sparse_conv")
     err = lib.sparse_conv_fwd(
-        features.data_ptr(), nbr.data_ptr(), weight.data_ptr(),
+        features.data_ptr(), nbr.data_ptr(), w.data_ptr(),
         None if b32 is None else b32.data_ptr(), out.data_ptr(),
         features.shape[0], nbr.shape[0], K, features.shape[1], cout, K4_DTYPES[features.dtype],
-        torch.cuda.current_stream(features.device).cuda_stream,
+        w_layout, torch.cuda.current_stream(features.device).cuda_stream,
     )
     build.check(err, name)
     build.LAUNCHES[name] += 1
@@ -288,8 +294,9 @@ def sparse_conv_cuda(features: torch.Tensor, nbr: torch.Tensor, weight: torch.Te
                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel K4. features [N_in, Cin], weight [K, Cin, Cout] in one dtype
     (float32 or bfloat16), nbr [N_out, K] int32, bias [Cout] -> [N_out, Cout]
-    in that dtype. Cin is zero-padded to a multiple of 16 here (the kernel's
-    16-byte row loads); the padded weight rows are zero."""
+    in that dtype. bfloat16 runs on the tensor cores (bf16 `mma.sync`, f32
+    sums), float32 on the CUDA cores. Cin is zero-padded to a multiple of 16
+    here (the kernel's 16-byte row loads); the padded weight rows are zero."""
     return _launch_k4("sparse_conv_fwd", features, nbr, weight, bias)
 
 
@@ -303,8 +310,9 @@ def sparse_conv_dgrad_cuda(g: torch.Tensor, nbr_t: torch.Tensor, weight: torch.T
     """K4 as the input gradient of a sparse conv, counted as
     `sparse_conv_dgrad`: g [N_out, Cout] and weight [K, Cin, Cout] in one
     dtype, nbr_t [N_in, K] int32 (`transpose_rules`) -> dfeat [N_in, Cin] in
-    that dtype. Cin must be one of K4's output widths."""
-    return _launch_k4("sparse_conv_dgrad", g, nbr_t, weight.transpose(1, 2), None)
+    that dtype. Cin must be one of K4's output widths. In bfloat16 the
+    kernel reads W[k]ᵀ from the weight as it is (no transposed copy)."""
+    return _launch_k4("sparse_conv_dgrad", g, nbr_t, weight, None, transposed=True)
 
 
 def sparse_conv_wgrad_plain(features: torch.Tensor, g: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
