@@ -59,14 +59,17 @@ Phases, each printed on its own line:
            gather: `torch.mm` of the [N_in, K*Cout] im2col of g by the
            stacked W^T for dgrad, `torch.bmm` of the [K, Cin, N] rows by g
            for K6) / `torch.mm` per tap / bound ms, summed over the step;
-           for dgrad also the dense-tile work and TFLOP/s, as for K4
+           the dense-tile work and TFLOP/s of the bf16 kernels, as for K4
+           (K6's tiles are `k6_tile_rows` rows of the sum); for K6 also the
+           chunk count and partial-scratch bytes of its bf16 launch, and a
+           rerun in each dtype must be bit-identical
   distill camera->lidar   the LiDAR student from the frozen camera teacher
            (K1 once, K4 21 + 20 dgrad, K6 21 a step)
   lidar train tiny        as train tiny, for a small LiDAR detector
   fusion predict  as predict, for the fusion detector (`fusion_exp().model`,
            both encoders): K1 once, K4 21 times, K2 and K3 once a request
   fusion train, distill fusion->lidar, distill fusion->camera   as distill
-           train, with one warm-up and one timed step each
+           train
   microbench      the sparse-conv microbenchmarks' entry points with every
            launch count set to 0 just before and read just after:
            `mb_pallas_fused` smoke (K8), `mb_gather_pallas` (index_select,
@@ -240,14 +243,14 @@ def max_err(got, ref):
     return d.max().item(), (d / ref.float().abs().clamp_min(1e-6)).max().item()
 
 
-def k4_tile_work(nbr, n_in, cin, cout):
-    """The work K4's bf16 kernel does on a map, as float operations: every
-    row of a K4_TILE_ROWS-row tile runs the product of every tap that any
-    row of the tile reads (dense tiles), against what the pairs need. Cin
-    is padded to 16 as the wrapper pads it. Returns (active (tile, tap)
-    pairs, dense-tile flops, pair flops)."""
-    from unidistill_torch.ops import sparse_conv
-    T = sparse_conv.K4_TILE_ROWS
+def tile_work(nbr, n_in, cin, cout, T):
+    """The work a bf16 sparse-conv kernel with T-row tiles does on a map, as
+    float operations: every row of a tile runs the product of every tap that
+    any row of the tile reads (dense tiles), against what the pairs need;
+    K4's tiles (K4_TILE_ROWS) are output rows of the conv, K6's
+    (`k6_tile_rows`) the rows it sums over. Cin is padded to 16 as the
+    wrappers pad it. Returns (active (tile, tap) pairs, dense-tile flops,
+    pair flops)."""
     ok = (nbr >= 0) & (nbr < n_in)
     ok = torch.cat([ok, ok.new_zeros(-ok.shape[0] % T, ok.shape[1])])
     tile_taps = int(ok.reshape(-1, T, ok.shape[1]).any(1).sum().item())
@@ -557,7 +560,7 @@ def lidar_phases(dev, table) -> None:
         peak = BF16_OPS_PER_S if f.dtype == torch.bfloat16 else F32_OPS_PER_S
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, 2 * pairs * cin * cout / peak * 1e3
         bound = max(bytes_ms, ops_ms)
-        tile_taps, dense_flop, pair_flop = k4_tile_work(nbr, f.shape[0], cin, cout)
+        tile_taps, dense_flop, pair_flop = tile_work(nbr, f.shape[0], cin, cout, sparse_conv.K4_TILE_ROWS)
         log(f"K4 sparse_conv_fwd {name}", n_in=f.shape[0], n_out=nbr.shape[0], K=K, cin=cin, cout=cout,
             pairs=pairs, tile_taps=tile_taps, dense_gflop=f"{dense_flop / 1e9:.3f}",
             pair_gflop=f"{pair_flop / 1e9:.3f}", dense_tflop_per_s=f"{dense_flop / ms / 1e9:.1f}",
@@ -806,9 +809,9 @@ def backward_kernel_phases(table, dgrad_calls, wgrad_calls, launches) -> None:
     for kernel, calls, labels in (("K4 sparse_conv_dgrad", dgrad_calls, names[:-1]),
                                   ("K6 sparse_conv_wgrad", wgrad_calls, names)):
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, library_per_tap_ms=0.0, bound_ms=0.0,
-                   bytes_ms=0.0, ops_ms=0.0)
-        if kernel.startswith("K4"):
-            tot.update(dense_gflop=0.0, pair_gflop=0.0)
+                   bytes_ms=0.0, ops_ms=0.0, tile_taps=0, dense_gflop=0.0, pair_gflop=0.0)
+        if kernel.startswith("K6"):
+            tot.update(scratch_bytes=0, max_scratch_bytes=0)
         worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
         for name, (args, _) in zip(labels, calls):
             args = [t.detach() for t in args]  # the saved weight is part of the graph
@@ -824,6 +827,8 @@ def backward_kernel_phases(table, dgrad_calls, wgrad_calls, launches) -> None:
                 torch.testing.assert_close(got.float(), ref.float(), rtol=tol[0], atol=tol[1] * scale,
                                            msg=f"{kernel} {name} {dt}")
                 worst[dt] = max(worst[dt], max_err(got, ref)[0])
+                if not dgrad and not torch.equal(got, fn(*a)):
+                    raise RuntimeError(f"{kernel} {name} {dt}: a rerun is not bit-identical")
             ms = cuda_ms(lambda: fn(*args))
             plain_ms = cuda_ms(lambda: plain(*args), iters=3)
             dense = {}
@@ -847,11 +852,7 @@ def backward_kernel_phases(table, dgrad_calls, wgrad_calls, launches) -> None:
                         out.addmm_(gath[k], wt[k])
                 nbytes = (g.numel() + w.numel() + n_in * cin) * esize + nbr.numel() * 4
                 # K4's view: the rows are inputs, its Cin the conv's Cout
-                tile_taps, dense_flop, pair_flop = k4_tile_work(nbr, g.shape[0], cout, cin)
-                dense = dict(tile_taps=tile_taps, dense_gflop=f"{dense_flop / 1e9:.3f}",
-                             pair_gflop=f"{pair_flop / 1e9:.3f}", dense_tflop_per_s=f"{dense_flop / ms / 1e9:.1f}")
-                tot["dense_gflop"] += dense_flop / 1e9
-                tot["pair_gflop"] += pair_flop / 1e9
+                tile_taps, dense_flop, pair_flop = tile_work(nbr, g.shape[0], cout, cin, sparse_conv.K4_TILE_ROWS)
             else:  # dW[k] = Σ_o x[nbr[o, k]]ᵀ·g[o]
                 x, g, nbr = args
                 K, cin, cout = nbr.shape[1], x.shape[1], g.shape[1]
@@ -868,6 +869,20 @@ def backward_kernel_phases(table, dgrad_calls, wgrad_calls, launches) -> None:
                     for k in range(K):
                         torch.mm(gath[k], g, out=out[k])
                 nbytes = (x.numel() + g.numel()) * esize + nbr.numel() * 4 + K * cin * cout * 4
+                # the bf16 kernel's tiles, chunks and partial sums (the f32 kernel's are not timed)
+                cin_p = cin + -cin % 16
+                tile_taps, dense_flop, pair_flop = tile_work(nbr, x.shape[0], cin, cout,
+                                                             sparse_conv.k6_tile_rows(cin_p, cout))
+                chunks, rows = sparse_conv.k6_launch_plan(g.shape[0], K, cin_p, cout, x.dtype, x.device)
+                scratch = chunks * K * cin_p * cout * 4
+                dense["chunks"], dense["rows_per_chunk"], dense["scratch_bytes"] = chunks, rows, scratch
+                tot["scratch_bytes"] += scratch
+                tot["max_scratch_bytes"] = max(tot["max_scratch_bytes"], scratch)
+            dense.update(tile_taps=tile_taps, dense_gflop=f"{dense_flop / 1e9:.3f}",
+                         pair_gflop=f"{pair_flop / 1e9:.3f}", dense_tflop_per_s=f"{dense_flop / ms / 1e9:.1f}")
+            tot["tile_taps"] += tile_taps
+            tot["dense_gflop"] += dense_flop / 1e9
+            tot["pair_gflop"] += pair_flop / 1e9
             library_ms = cuda_ms(library, iters=5)
             per_tap_ms = cuda_ms(library_per_tap, iters=5)
             del gath, src, out
@@ -882,11 +897,11 @@ def backward_kernel_phases(table, dgrad_calls, wgrad_calls, launches) -> None:
                 tot[k] += v
         bound_by = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
         tol = K4_DGRAD_TOL if kernel.startswith("K4") else {dt: K6_TOL for dt in worst}
-        rate = {"dense_tflop_per_s": f"{tot['dense_gflop'] / tot['ms']:.1f}"} if "dense_gflop" in tot else {}
         log(kernel, convs=len(calls), max_abs_err_bf16=f"{worst[torch.bfloat16]:.3e}",
             max_abs_err_f32=f"{worst[torch.float32]:.3e}",
             tol="; ".join(f"{dt}: rtol={r},atol={a}*max|ref|" for dt, (r, a) in tol.items()),
-            **{f"{k}_per_step": f"{v:.4f}" for k, v in tot.items()}, bound_by=bound_by, **rate)
+            **{f"{k}_per_step": (v if isinstance(v, int) else f"{v:.4f}") for k, v in tot.items()},
+            bound_by=bound_by, dense_tflop_per_s=f"{tot['dense_gflop'] / tot['ms']:.1f}")
         key = "sparse_conv_dgrad" if kernel.startswith("K4") else "sparse_conv_wgrad"
         table.append(dict(name=key, route="cuda", source="unidistill_torch/csrc/sparse_conv.cu",
                           replaces="unidistill_tpu/ops/sparse_conv_pallas.py:279", launches=launches[key],
@@ -981,7 +996,8 @@ def lidar_train_phases(dev, table) -> None:
 
 def fusion_phases(dev) -> None:
     """The fusion detector: predict, train, and the two distillation pairs
-    with the fusion teacher (one warm-up and one timed step each)."""
+    with the fusion teacher (one warm-up and TIMED_STEPS timed steps each:
+    a single fusion step's time varies by more than the kernels move)."""
     from unidistill_torch.configs.nuscenes import DISTILL_VARIANTS, camera_exp, distill_exp, fusion_exp, lidar_exp
     from unidistill_torch.serving.predictor import Detector
     from unidistill_torch.serving.synthetic import calibrate_batchnorm, random_state_dict, train_batch
@@ -1008,8 +1024,7 @@ def fusion_phases(dev) -> None:
     state = TrainState()
     train_run("fusion train", lambda: steps.train_step(state, batch, model, opt, cfg), model,
               dict(bev_pool_fwd=1, bev_pool_bwd=1, sparse_conv_fwd=SPARSE_CONVS_PER_REQUEST,
-                   sparse_conv_dgrad=SPARSE_CONV_DGRADS_PER_STEP, sparse_conv_wgrad=SPARSE_CONVS_PER_REQUEST),
-              n_steps=1)
+                   sparse_conv_dgrad=SPARSE_CONV_DGRADS_PER_STEP, sparse_conv_wgrad=SPARSE_CONVS_PER_REQUEST))
     del model, opt, state
     torch.cuda.empty_cache()
 
@@ -1027,7 +1042,7 @@ def fusion_phases(dev) -> None:
         opt = make_optimizer(student, distill_exp(*pair).train)
         state = TrainState()
         train_run(phase, lambda: steps.distill_train_step(
-            state, batch, student, teacher, opt, s_cfg, cfg, DISTILL_VARIANTS[pair]), student, want, n_steps=1)
+            state, batch, student, teacher, opt, s_cfg, cfg, DISTILL_VARIANTS[pair]), student, want)
         check_frozen(phase, teacher)
         del student, opt, state
         torch.cuda.empty_cache()
@@ -1209,7 +1224,8 @@ def main() -> int:
     t0 = time.time()
     logs = build.build_all()
     build_s = time.time() - t0
-    (build.BUILD_DIR / "nvcc.log").write_text("\n".join(f"== {k}\n{v}" for k, v in logs.items()))
+    if logs:  # a cached build keeps the report of the run that built it
+        (build.BUILD_DIR / "nvcc.log").write_text("\n".join(f"== {k}\n{v}" for k, v in logs.items()))
     for name in build.SOURCES:
         build.library(name)
     log("build", seconds=f"{build_s:.2f}", built=",".join(sorted(logs)) or "cached")

@@ -20,7 +20,9 @@ multiplies on the tensor cores, whose bf16 products are exact in f32 as
 the plain version's are). The sparse conv's
 backward: K6 (dW) against its plain version at 1e-4 of max |ref| in float32
 and in bfloat16 (bf16 products are exact in f32, so only the summation order
-differs; empty tiles and taps give exact zeros); K4 as the input gradient on
+differs; empty tiles and taps give exact zeros; the bf16 instance runs on
+the tensor cores, whose bf16 products are exact in f32 as the plain
+version's are); K4 as the input gradient on
 strided maps as K4 forward; `SparseConv`'s gradients against autograd of the
 plain version (f32 rtol/atol 1e-4 of the scale; bf16 2e-2 of the scale: dfeat
 rounds once to bf16, dW is summed over bf16-rounded g in another order)
@@ -335,7 +337,7 @@ def test_sparse_conv_wgrad_kernel_matches_plain(cuda_device, dtype, K, cin, cout
 
 @pytest.mark.cuda
 def test_sparse_conv_wgrad_kernel_is_deterministic(cuda_device):
-    """Two K6 runs over 300 000 rows (64 chunks per tap) are bit-equal."""
+    """Two K6 runs over 300 000 rows (many chunks per tap) are bit-equal."""
     feats, nbr, _, _ = _sparse_inputs(cuda_device, torch.bfloat16, 320000, 300000, 27, 16, 16, seed=5)
     g = torch.randn(300000, 16, generator=torch.Generator().manual_seed(6)).to(cuda_device, torch.bfloat16)
     a = sparse_conv.sparse_conv_wgrad_cuda(feats, g, nbr)
@@ -343,6 +345,75 @@ def test_sparse_conv_wgrad_kernel_is_deterministic(cuda_device):
     assert torch.equal(a, b)
     ref = sparse_conv.sparse_conv_wgrad_plain(feats, g, nbr)
     torch.testing.assert_close(a, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
+
+
+def _k6_case(device, n_in, n_out, K, cin, cout, seed):
+    """bf16 inputs of K6 from numpy: half the map's entries -1, every 7th
+    row's first tap at input n_in - 1, tap 1 -1 everywhere; with more than
+    three tiles of rows, tile 1 has no neighbour at any tap and tile 2 one
+    active row (5)."""
+    rng = np.random.default_rng(seed)
+    nbr = rng.integers(0, n_in, (n_out, K)).astype(np.int32)
+    nbr[rng.random((n_out, K)) < 0.5] = -1
+    nbr[::7, 0] = n_in - 1
+    T = sparse_conv.k6_tile_rows(cin + -cin % 16, cout)
+    if n_out > 3 * T:
+        nbr[T:3 * T] = -1
+        nbr[2 * T + 5] = rng.integers(0, n_in, K)
+    nbr[:, 1] = -1
+    to = lambda a: torch.from_numpy(a).to(device, torch.bfloat16)
+    return to(rng.standard_normal((n_in, cin))), to(rng.standard_normal((n_out, cout))), torch.from_numpy(nbr).to(device)
+
+
+def _k6_bf16_check(feats, g, nbr):
+    """K6's bf16 instance against its plain version at K6's tolerance;
+    returns the kernel's result."""
+    from unidistill_torch.kernels import build
+    before = build.LAUNCHES["sparse_conv_wgrad"]
+    got = sparse_conv.sparse_conv_wgrad_cuda(feats, g, nbr)
+    assert build.LAUNCHES["sparse_conv_wgrad"] == before + 1
+    ref = sparse_conv.sparse_conv_wgrad_plain(feats, g, nbr)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,cin,cout", ENCODER_CONVS)
+def test_sparse_conv_wgrad_bf16_kernel_at_encoder_shapes(cuda_device, K, cin, cout):
+    """K6's tensor-core instance at every conv shape of the encoder (conv_input's
+    Cin 5 padded to 16, conv_out's K = 3), 1000 rows (not a whole number of
+    tiles): a tap that is -1 everywhere gives an exact 0, and the tile with
+    one active row, alone in the map, gives that row's outer products
+    exactly (one exact bf16 product per sum)."""
+    feats, g, nbr = _k6_case(cuda_device, 1500, 1000, K, cin, cout, seed=K + cin + cout)
+    got = _k6_bf16_check(feats, g, nbr)
+    assert (got[1] == 0).all()
+    T = sparse_conv.k6_tile_rows(cin + -cin % 16, cout)
+    one = torch.full_like(nbr, -1)
+    one[2 * T + 5] = nbr[2 * T + 5]
+    assert torch.equal(sparse_conv.sparse_conv_wgrad_cuda(feats, g, one), sparse_conv.sparse_conv_wgrad_plain(feats, g, one))
+
+
+@pytest.mark.cuda
+def test_sparse_conv_wgrad_bf16_kernel_with_fewer_inputs_than_a_tile(cuda_device):
+    """50 input rows (fewer than one tile), 300 output rows, neighbours up to
+    the last input row."""
+    feats, g, nbr = _k6_case(cuda_device, 50, 300, 27, 32, 16, seed=9)
+    assert int(nbr.max()) == 49
+    _k6_bf16_check(feats, g, nbr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(16, 16), (128, 128)])
+def test_sparse_conv_wgrad_bf16_kernel_is_deterministic(cuda_device, cin, cout):
+    """Two runs over 300 000 rows (many chunks per tap, added in chunk order)
+    are bit-equal."""
+    feats, g, nbr = _k6_case(cuda_device, 320000, 300000, 27, cin, cout, seed=cin + cout)
+    a = _k6_bf16_check(feats, g, nbr)
+    b = _k6_bf16_check(feats, g, nbr)
+    assert torch.equal(a, b)
 
 
 def _stage(device, shape, n, seed, C):

@@ -231,3 +231,51 @@ def test_dgrad_wrapper_refuses_cpu_tensors(dtype):
     w = torch.from_numpy(weights(27, 16, 16, 53)).to(dtype)
     with pytest.raises(ValueError, match="CUDA"):
         sc.sparse_conv_dgrad_cuda(g, nbr_t, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_wgrad_wrapper_refuses_cpu_tensors(dtype):
+    """The weight gradient's wrapper launches K6 or raises: it has no plain
+    fallback for tensors off the card, in either dtype."""
+    _, pst, _ = voxel_set(S3, seed=54)
+    nbr = sc.subm_rules(pst)
+    x = pst.features.to(dtype)
+    g = torch.from_numpy(cotangent(nbr.shape[0], 16, 55)).to(dtype)
+    with pytest.raises(ValueError, match="CUDA"):
+        sc.sparse_conv_wgrad_cuda(x, g, nbr)
+
+
+# (rows, K, Cin, Cout) of K6 launches: stage sizes of a LiDAR train step at
+# the encoder's widths, and edges (one row, a tile, a tile and a row)
+K6_PLAN_CASES = [(348439, 27, 16, 16), (444729, 27, 32, 32), (171279, 27, 64, 64),
+                 (54064, 27, 128, 128), (48919, 3, 128, 128), (171279, 27, 32, 64),
+                 (1, 27, 16, 16), (128, 27, 16, 32), (129, 27, 64, 128), (65, 3, 128, 128)]
+
+
+@pytest.mark.parametrize("n_out,K,cin,cout", K6_PLAN_CASES)
+@pytest.mark.parametrize("sms,blocks_per_sm", [(132, 2), (132, 9), (1, 1)])
+def test_k6_plan_covers_every_row_in_whole_tiles(n_out, K, cin, cout, sms, blocks_per_sm):
+    """K6's bf16 row split is a function of the shapes and the SM count: whole
+    tiles per chunk, every row in exactly one chunk, no empty chunk, about two
+    waves of (tap, chunk) blocks, within the chunk cap."""
+    tile = sc.k6_tile_rows(cin, cout)
+    assert tile == (64 if cin + cout > 128 else 128)
+    want = sc.k6_chunks_wanted(K, sms, blocks_per_sm)
+    assert (want - 1) * K < sc.K6_WAVES * sms * blocks_per_sm <= want * K
+    chunks, rows = sc.k6_plan(n_out, tile, want)
+    assert (chunks, rows) == sc.k6_plan(n_out, tile, want)
+    tiles = -(-n_out // tile)
+    cap = min(want, tiles, sc.K6_MAX_CHUNKS)
+    assert rows % tile == 0 and rows >= tile
+    assert (chunks - 1) * rows < n_out <= chunks * rows
+    assert 2 * chunks > cap and chunks <= cap
+
+
+@pytest.mark.parametrize("n_out", [1, 31, 33, 2048, 2049, 348439])
+def test_k6_f32_plan_keeps_the_cuda_core_split(n_out):
+    """The f32 kernel's split needs no card: 32-row tiles in at most 64
+    chunks, none empty, every row in one."""
+    chunks, rows = sc.k6_launch_plan(n_out, 27, 16, 16, torch.float32, torch.device("cpu"))
+    assert (chunks, rows) == sc.k6_plan(n_out, sc.K6_F32_ROWS, sc.K6_F32_CHUNKS)
+    assert rows % 32 == 0 and chunks <= 64
+    assert (chunks - 1) * rows < n_out <= chunks * rows

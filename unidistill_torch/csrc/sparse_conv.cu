@@ -84,19 +84,47 @@
 //   dW[k, :, :] = sum_o feats[nbr[o, k], :]^T g[o, :]     (nbr < 0: no term)
 //
 // feats [n_in, cin] and g [n_out, cout] in one dtype, dW [K, cin, cout] f32.
-//   * one block per (chunk of output rows, tap); it walks its chunk 32 rows
-//     at a time, skips a 32-row tile with no neighbour at its tap (a
-//     block-wide OR), gathers the tile's feature rows and loads its g rows
-//     with 16-byte loads into shared memory as f32, and adds their outer
-//     products into a cin x cout f32 tile held in registers (4 output
-//     channels x 1-16 input channels a thread; with fewer than 256 threads'
-//     worth of tile, groups of threads take alternate rows and are summed in
-//     group order at the end);
-//   * each block writes its chunk's partial tile; a second kernel adds the
-//     chunks in chunk order. No float atomics: the result is deterministic.
-// What bounds it: the same pairs as the forward, a cin x cout outer product
-// each, on the CUDA cores in f32 (tensor-core tiles are later work); at 16
-// and 32 channels the gathered rows and the map (bytes) bound it.
+// Both instances split the output rows into chunks of whole row tiles (the
+// wrapper's plan, ops/sparse_conv.k6_plan); one block per (tap, chunk)
+// writes its chunk's partial cin x cout sum, and a second kernel adds the
+// chunks in chunk order. No float atomics: a rerun is bit-identical.
+//
+// bf16 (`sparse_conv_wgrad_tc_kernel<CIN, COUT>`): a gathered GEMM on the
+// tensor cores, per tap M = cin, N = cout, summed over the output rows.
+//   * the grid is (tap, chunk) with the tap fastest, so the K blocks that
+//     read the same rows' map entries and g rows run together and share L2;
+//   * the block walks its chunk one tile of 128 rows (64 where cin + cout >
+//     128) at a time. Each of the first 128 threads holds the next tile's
+//     map entry of its row at the block's tap, loaded one tile ahead; a tile
+//     with no neighbour at the tap is skipped (a block-wide OR);
+//   * an active tile's feature rows (gathered) and g rows are copied into
+//     shared memory in bf16 with 16-byte cp.async, zero-filled (src-size 0)
+//     where nbr = -1 or nbr >= n_in; rows are padded by 16 bytes so that
+//     ldmatrix is free of bank conflicts. Two stages: tile t+1's copies are
+//     in flight while tile t's products run;
+//   * A = X^T is read from the [rows][cin] stage with ldmatrix.trans, B = g
+//     from the [rows][cout] stage with ldmatrix.trans; products are bf16
+//     mma.sync m16n8k16 with f32 sums in registers. The 4 warps split the
+//     cin x cout tile into warp tiles of up to 64 x 64 and, where fewer than
+//     4 warp tiles cover it, also the rows of each tile; such warps' sums
+//     are added in shared memory in warp order.
+// What bounds it on an H100 (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py):
+// at 64 and 128 channels the dense-tile mma work (every row of an active
+// tile enters the product, as K4's tiles do: 1.8x the work of a LiDAR
+// step's pairs), at 140-230 TFLOP/s; at 16 and 32 channels, at 22-72
+// TFLOP/s, the row copies: each of a chunk's K blocks copies the tile's g
+// rows and its own gathered rows through L2, and reads its map column (4
+// bytes of each 108-byte map row). Left for later: one block for several
+// taps (g staged once), a mask split of the rows, wgmma.
+//
+// f32 (`sparse_conv_wgrad_kernel<float, CIN, COUT>`), for the f32 steps and
+// checks, on the CUDA cores: one block per (chunk, tap) walks its chunk 32
+// rows at a time, skips a tile with no neighbour at its tap, gathers the
+// tile's feature rows and g rows into shared memory with 16-byte loads, and
+// adds their outer products into a cin x cout f32 tile held in registers (4
+// output channels x 1-16 input channels a thread; with fewer than 256
+// threads' worth of tile, groups of threads take alternate rows and are
+// summed in group order at the end).
 //
 // The launches allocate nothing and run on the caller's stream.
 #include <cuda_bf16.h>
@@ -111,24 +139,13 @@ constexpr int kMaxTaps = 27;
 constexpr int kChunk = 32;            // input channels staged per step
 constexpr int kXStride = kChunk + 1;  // padded row of the staged rows (no bank conflicts)
 
-// 16 bytes at p (4 floats or 8 bf16), converted to f32
+// 16 bytes at p (4 floats)
 __device__ __forceinline__ void load16(const float* p, float* dst) {
   const float4 v = __ldg(reinterpret_cast<const float4*>(p));
   dst[0] = v.x;
   dst[1] = v.y;
   dst[2] = v.z;
   dst[3] = v.w;
-}
-
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* dst) {
-  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
 }
 
 __device__ __forceinline__ void store4(float* p, const float* v) {
@@ -535,7 +552,7 @@ int launch_tc(const void* feats, const int* nbr, const void* w, const float* bia
   }
 }
 
-constexpr int kWRows = 32;  // output rows a K6 block stages per step
+constexpr int kWRows = 32;  // output rows K6's f32 block stages per step
 
 template <typename T, int CIN, int COUT>
 __global__ void __launch_bounds__(kThreads)
@@ -653,49 +670,235 @@ __global__ void sparse_conv_wgrad_reduce_kernel(const float* __restrict__ partia
   dw[i] = s;
 }
 
-template <typename T, int CIN>
-int launch_wgrad_cin(const void* feats, const void* g, const int* nbr, float* partial,
-                     int n_in, int n_out, int K, int cout, int chunks,
-                     int rows_per_chunk, cudaStream_t stream) {
-  const dim3 grid(chunks, K);
-  const T* f = static_cast<const T*>(feats);
-  const T* gt = static_cast<const T*>(g);
-  switch (cout) {
-    case 16:
-      sparse_conv_wgrad_kernel<T, CIN, 16><<<grid, kThreads, 0, stream>>>(f, gt, nbr, partial, n_in, n_out, K, rows_per_chunk);
-      break;
-    case 32:
-      sparse_conv_wgrad_kernel<T, CIN, 32><<<grid, kThreads, 0, stream>>>(f, gt, nbr, partial, n_in, n_out, K, rows_per_chunk);
-      break;
-    case 64:
-      sparse_conv_wgrad_kernel<T, CIN, 64><<<grid, kThreads, 0, stream>>>(f, gt, nbr, partial, n_in, n_out, K, rows_per_chunk);
-      break;
-    case 128:
-      sparse_conv_wgrad_kernel<T, CIN, 128><<<grid, kThreads, 0, stream>>>(f, gt, nbr, partial, n_in, n_out, K, rows_per_chunk);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+// ---- K6 bf16: the gathered GEMM on the tensor cores -------------------------
+
+// One instance's shape: output rows a pipeline step stages (`k6_tile_rows` in
+// ops/sparse_conv.py), a warp's tile of dW (kWM x kWN), how many warps split
+// the rows of a step, and the dynamic shared memory: two stages of
+// [rows][cin + 8] and [rows][cout + 8] bf16, or the warps' [split][cin][cout
+// + 8] f32 sums, which reuse them.
+template <int CIN, int COUT>
+struct WgradTc {
+  static constexpr int kRows = CIN + COUT > 128 ? 64 : 128;
+  static constexpr int kWM = CIN < 64 ? CIN : 64;
+  static constexpr int kWN = COUT < 64 ? COUT : 64;
+  static constexpr int kSplit = kTcWarps / ((CIN / kWM) * (COUT / kWN));
+  static constexpr int kAS = CIN + 8, kBS = COUT + 8, kRS = COUT + 8;
+  static constexpr int kPipe = kTcStages * kRows * (kAS + kBS) * 2;
+  static constexpr int kRed = kSplit * CIN * kRS * 4;
+  static constexpr int kSmem = kPipe > kRed ? kPipe : kRed;
+  static_assert(kSplit >= 1 && (kRows / 16) % kSplit == 0, "warp split");
+};
+
+// One staged tile's products into a warp's sums: its kWM x kWN tile of dW at
+// (m0, n0), over the k16 steps wk, wk + kSplit, ... of the tile's rows. A =
+// X^T from the [rows][cin] stage a, B = g from the [rows][cout] stage b.
+template <typename P, int MT, int NT>
+__device__ __forceinline__ void wgrad_tile_mma(float (&acc)[MT][NT][4], uint32_t a, uint32_t b,
+                                               int m0, int n0, int wk, int lane) {
+#pragma unroll
+  for (int j = 0; j < P::kRows / 16 / P::kSplit; ++j) {
+    const int kk = j * P::kSplit + wk;
+    uint32_t af[MT][4];
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+      // matrices (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15), (m 8-15,
+      // k 8-15), each stored as 8 rows (k) of 8 input channels (m)
+      const int r = kk * 16 + (lane >> 4) * 8 + (lane & 7);
+      ldmatrix_x4_trans(af[mi], a + (r * P::kAS + m0 + mi * 16 + ((lane >> 3) & 1) * 8) * 2);
+    }
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      // matrices (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15)
+      uint32_t bf[4];
+      const int r = kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+      ldmatrix_x4_trans(bf, b + (r * P::kBS + n0 + np * 16 + (lane >> 4) * 8) * 2);
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        mma_bf16(acc[mi][2 * np], af[mi], bf[0], bf[1]);
+        mma_bf16(acc[mi][2 * np + 1], af[mi], bf[2], bf[3]);
+      }
+    }
   }
-  return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_wgrad(const void* feats, const void* g, const int* nbr, float* partial,
-                 int n_in, int n_out, int K, int cin, int cout, int chunks,
-                 int rows_per_chunk, cudaStream_t stream) {
-  switch (cin) {
-    case 16:
-      return launch_wgrad_cin<T, 16>(feats, g, nbr, partial, n_in, n_out, K, cout, chunks, rows_per_chunk, stream);
-    case 32:
-      return launch_wgrad_cin<T, 32>(feats, g, nbr, partial, n_in, n_out, K, cout, chunks, rows_per_chunk, stream);
-    case 64:
-      return launch_wgrad_cin<T, 64>(feats, g, nbr, partial, n_in, n_out, K, cout, chunks, rows_per_chunk, stream);
-    case 128:
-      return launch_wgrad_cin<T, 128>(feats, g, nbr, partial, n_in, n_out, K, cout, chunks, rows_per_chunk, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+template <int CIN, int COUT>
+__global__ void __launch_bounds__(kTcThreads)
+    sparse_conv_wgrad_tc_kernel(const __nv_bfloat16* __restrict__ feats,
+                                const __nv_bfloat16* __restrict__ g,
+                                const int* __restrict__ nbr,
+                                float* __restrict__ partial, int n_in, int n_out,
+                                int K, int rows_per_chunk) {
+  using P = WgradTc<CIN, COUT>;
+  constexpr int T = P::kRows;
+  constexpr int kMT = P::kWM / 16, kNT = P::kWN / 8;
+  constexpr int kAP = CIN / 8, kBP = COUT / 8;  // 16-byte pieces of a feature row, of a g row
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_src[2][T];  // map entries of the tile being staged, by tile parity
+  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sB = sA + kTcStages * T * P::kAS;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wk = warp % P::kSplit, wt = warp / P::kSplit;
+  const int m0 = wt / (COUT / P::kWN) * P::kWM, n0 = wt % (COUT / P::kWN) * P::kWN;
+  const int k = blockIdx.x;
+  const long long r0 = (long long)blockIdx.y * rows_per_chunk;
+  const long long r1 = min(r0 + rows_per_chunk, (long long)n_out);
+
+  // thread tid's map entry at tap k for row base + tid of a tile: -1 for no
+  // neighbour, an input past n_in, a row past the chunk or tid >= T
+  auto entry = [&](long long base) {
+    int v = -1;
+    if (tid < T && base + tid < r1) v = __ldg(nbr + (base + tid) * K + k);
+    return v >= 0 && v < n_in ? v : -1;
+  };
+  // copy the tile at base (map entries src) into stage buf; zeros where src < 0.
+  // The copy loops stay rolled: unrolled, they cost registers (ptxas: 214 at
+  // 128 x 128 and spills at 16 x 64 and 16 x 128; rolled, 166 and none).
+  auto stage = [&](long long base, const int* src, int buf) {
+    const uint32_t a = smem_addr(sA + buf * T * P::kAS);
+#pragma unroll 1
+    for (int i = tid; i < T * kAP; i += kTcThreads) {
+      const int r = i / kAP, p = i % kAP;
+      const int s = src[r];
+      cp_async16(a + (r * P::kAS + p * 8) * 2, feats + (long long)(s >= 0 ? s : 0) * CIN + p * 8, s >= 0);
+    }
+    const uint32_t b = smem_addr(sB + buf * T * P::kBS);
+#pragma unroll 1
+    for (int i = tid; i < T * kBP; i += kTcThreads) {
+      const int r = i / kBP, p = i % kBP;
+      const bool ok = src[r] >= 0;  // then base + r < r1
+      cp_async16(b + (r * P::kBS + p * 8) * 2, g + (ok ? base + r : 0) * COUT + p * 8, ok);
+    }
+  };
+
+  float acc[kMT][kNT][4];
+#pragma unroll
+  for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kNT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  int next = entry(r0);
+  int buf = 0, ready = -1;  // ready: the stage whose tile's products are still to run
+  int par = 0;
+  for (long long base = r0; base < r1; base += T, par ^= 1) {
+    const int v = next;
+    if (tid < T) s_src[par][tid] = v;
+    next = entry(base + T);  // in flight while this tile is staged and the last one multiplied
+    if (!__syncthreads_or(v >= 0)) continue;  // no neighbour at tap k in the tile
+    stage(base, s_src[par], buf);
+    cp_async_commit();
+    if (ready >= 0) {
+      cp_async_wait<1>();  // the ready stage's copies have landed
+      __syncthreads();     // ... for every thread
+      wgrad_tile_mma<P>(acc, smem_addr(sA + ready * T * P::kAS), smem_addr(sB + ready * T * P::kBS),
+                        m0, n0, wk, lane);
+    }
+    ready = buf;
+    buf ^= 1;
+  }
+  if (ready >= 0) {
+    cp_async_wait<0>();
+    __syncthreads();
+    wgrad_tile_mma<P>(acc, smem_addr(sA + ready * T * P::kAS), smem_addr(sB + ready * T * P::kBS),
+                      m0, n0, wk, lane);
+  }
+  __syncthreads();  // every warp is done with the stages, which the sums reuse
+
+  // the warps' sums into shared memory, then added in warp order and stored
+  float* red = reinterpret_cast<float*>(smem);
+  const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kNT; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int ci = m0 + mi * 16 + gid + 8 * h, co = n0 + ni * 8 + 2 * tig;
+        *reinterpret_cast<float2*>(red + (wk * CIN + ci) * P::kRS + co) =
+            make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+      }
+  __syncthreads();
+  float* out = partial + ((long long)blockIdx.y * K + k) * CIN * COUT;
+  for (int i = tid; i < CIN * COUT; i += kTcThreads) {
+    const int ci = i / COUT, co = i % COUT;
+    float s = red[ci * P::kRS + co];
+#pragma unroll
+    for (int q = 1; q < P::kSplit; ++q) s += red[(q * CIN + ci) * P::kRS + co];
+    out[i] = s;
   }
 }
+
+// once per instance: allow the dynamic shared memory it needs above 48 KB
+template <int CIN, int COUT>
+cudaError_t wgrad_tc_prepare() {
+  constexpr int bytes = WgradTc<CIN, COUT>::kSmem;
+  if constexpr (bytes > 48 * 1024) {
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        sparse_conv_wgrad_tc_kernel<CIN, COUT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    return attr;
+  } else {
+    return cudaSuccess;
+  }
+}
+
+// F::run<CIN, COUT>(args...) for the instance of (cin, cout), each one of 16,
+// 32, 64, 128; cudaErrorInvalidValue for any other width
+template <typename F, int CIN, typename... A>
+int for_cout(int cout, A... a) {
+  switch (cout) {
+    case 16: return F::template run<CIN, 16>(a...);
+    case 32: return F::template run<CIN, 32>(a...);
+    case 64: return F::template run<CIN, 64>(a...);
+    case 128: return F::template run<CIN, 128>(a...);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename F, typename... A>
+int for_widths(int cin, int cout, A... a) {
+  switch (cin) {
+    case 16: return for_cout<F, 16>(cout, a...);
+    case 32: return for_cout<F, 32>(cout, a...);
+    case 64: return for_cout<F, 64>(cout, a...);
+    case 128: return for_cout<F, 128>(cout, a...);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+struct WgradLaunch {
+  template <int CIN, int COUT>
+  static int run(const void* feats, const void* g, const int* nbr, float* partial, int n_in,
+                 int n_out, int K, int chunks, int rows_per_chunk, int dtype, cudaStream_t s) {
+    if (dtype == 0) {
+      if (rows_per_chunk % kWRows) return (int)cudaErrorInvalidValue;
+      sparse_conv_wgrad_kernel<float, CIN, COUT><<<dim3(chunks, K), kThreads, 0, s>>>(
+          static_cast<const float*>(feats), static_cast<const float*>(g), nbr, partial, n_in, n_out,
+          K, rows_per_chunk);
+    } else {
+      using P = WgradTc<CIN, COUT>;
+      if (rows_per_chunk % P::kRows) return (int)cudaErrorInvalidValue;
+      const cudaError_t attr = wgrad_tc_prepare<CIN, COUT>();
+      if (attr != cudaSuccess) return (int)attr;
+      sparse_conv_wgrad_tc_kernel<CIN, COUT><<<dim3(K, chunks), kTcThreads, P::kSmem, s>>>(
+          static_cast<const __nv_bfloat16*>(feats), static_cast<const __nv_bfloat16*>(g), nbr,
+          partial, n_in, n_out, K, rows_per_chunk);
+    }
+    return (int)cudaGetLastError();
+  }
+};
+
+struct WgradOccupancy {
+  template <int CIN, int COUT>
+  static int run(int* blocks) {
+    const cudaError_t attr = wgrad_tc_prepare<CIN, COUT>();
+    if (attr != cudaSuccess) return (int)attr;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, sparse_conv_wgrad_tc_kernel<CIN, COUT>, kTcThreads, WgradTc<CIN, COUT>::kSmem);
+  }
+};
 
 }  // namespace
 
@@ -719,28 +922,32 @@ extern "C" int sparse_conv_fwd(const void* feats, const int* nbr, const void* w,
   return (int)cudaErrorInvalidValue;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. cin and cout each one of 16, 32, 64, 128,
-// K <= 27, 1 <= chunks; partial is scratch of chunks * K * cin * cout floats,
-// dw receives K * cin * cout floats.
+// dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the tensor-core
+// kernel). cin and cout each one of 16, 32, 64, 128, K <= 27. The rows are
+// split into `chunks` (at most 65535) chunks of rows_per_chunk rows, a whole
+// number of tiles (32 rows in float32, `k6_tile_rows` in bfloat16), with
+// chunks * rows_per_chunk >= n_out; partial is scratch of chunks * K * cin *
+// cout floats, dw receives K * cin * cout floats.
 extern "C" int sparse_conv_wgrad(const void* feats, const void* g, const int* nbr,
                                  float* partial, float* dw, int n_in, int n_out,
-                                 int K, int cin, int cout, int chunks, int dtype,
-                                 void* stream) {
-  if (K < 1 || K > kMaxTaps || chunks < 1) return (int)cudaErrorInvalidValue;
-  if (n_out <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int tiles = (n_out + kWRows - 1) / kWRows;
-  const int rows_per_chunk = (tiles + chunks - 1) / chunks * kWRows;
-  int err;
-  if (dtype == 0) {
-    err = launch_wgrad<float>(feats, g, nbr, partial, n_in, n_out, K, cin, cout, chunks, rows_per_chunk, s);
-  } else if (dtype == 1) {
-    err = launch_wgrad<__nv_bfloat16>(feats, g, nbr, partial, n_in, n_out, K, cin, cout, chunks, rows_per_chunk, s);
-  } else {
+                                 int K, int cin, int cout, int chunks, int rows_per_chunk,
+                                 int dtype, void* stream) {
+  if (K < 1 || K > kMaxTaps || chunks < 1 || chunks > 65535 || rows_per_chunk < 1 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  }
+  if (n_out <= 0) return 0;
+  if ((long long)chunks * rows_per_chunk < n_out) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int err = for_widths<WgradLaunch>(cin, cout, feats, g, nbr, partial, n_in, n_out, K, chunks,
+                                          rows_per_chunk, dtype, s);
   if (err != 0) return err;
   const long long n = (long long)K * cin * cout;
   sparse_conv_wgrad_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(partial, dw, chunks, n);
   return (int)cudaGetLastError();
+}
+
+// the blocks of K6's bfloat16 instance for (cin, cout) that one SM holds at
+// once, into *blocks
+extern "C" int sparse_conv_wgrad_blocks_per_sm(int cin, int cout, int* blocks) {
+  return for_widths<WgradOccupancy>(cin, cout, blocks);
 }

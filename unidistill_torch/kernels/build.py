@@ -59,8 +59,10 @@ SIGNATURES = {
     "sparse_conv": {
         # feats, nbr, w, bias (or None), out, n_in, n_out, K, cin, cout, dtype, w_layout, stream
         "sparse_conv_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-        # feats, g, nbr, partial, dw, n_in, n_out, K, cin, cout, chunks, dtype, stream
-        "sparse_conv_wgrad": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+        # feats, g, nbr, partial, dw, n_in, n_out, K, cin, cout, chunks, rows_per_chunk, dtype, stream
+        "sparse_conv_wgrad": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+        # cin, cout, &blocks (K6's bfloat16 instance)
+        "sparse_conv_wgrad_blocks_per_sm": (_I, _I, _P),
     },
     "fused_offsets": {
         # g, case_oh, w8, out, B, S, C, co4, stream

@@ -39,13 +39,23 @@ autograd needs its gradient it runs as `SparseConv`, whose backward is
   dfeat = K4 over nbr_t with W[k]ᵀ (`sparse_conv_dgrad_cuda`),
   dW[k] = Σ_o features[nbr[o, k]]ᵀ·g[o], kernel K6 (`sparse_conv_wgrad_cuda`),
   dbias = Σ_o g[o] (a plain reduction);
-the counterpart of the JAX custom VJP `_subm_bwd`. For CPU tensors it runs
+the counterpart of the JAX custom VJP `_subm_bwd`. In bf16 (every model
+path) K4 and K6 multiply on the tensor cores. K6 there is a gathered GEMM
+per tap (M = Cin, N = Cout, summed over row tiles of `k6_tile_rows`): one
+block per (tap, chunk of rows), the tap fastest so that a chunk's blocks
+share its map and g rows in L2, the chunks (`k6_plan`, about K6_WAVES
+waves) added in order by a second kernel, so reruns are bit-identical.
+Like K4's tiles, it multiplies every row of a tile that has any neighbour
+at the tap, so at 64 and 128 channels its dense-tile mma work bounds it,
+at 16 and 32 channels its gathers and map reads. For CPU tensors it runs
 `sparse_conv_plain`, the same function in plain PyTorch, which autograd
 differentiates; `sparse_conv_dgrad_plain` and `sparse_conv_wgrad_plain` are
 the backward kernels' plain versions.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from dataclasses import dataclass, replace
 from typing import Optional, Sequence, Tuple
 
@@ -59,12 +69,17 @@ K4_COUTS = (16, 32, 64, 128)
 K4_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 K4_TILE_ROWS = 128  # output rows a block of K4's bf16 kernel owns (`kTcRows` in csrc/sparse_conv.cu)
 K6_CHANNELS = (16, 32, 64, 128)  # Cin (after padding to 16) and Cout
-# K6 splits the output rows of each tap into at most K6_MAX_CHUNKS chunks of
-# whole K6_ROWS-row tiles (`kWRows` in csrc/sparse_conv.cu); one block per
-# (chunk, tap) writes its partial [Cin, Cout] sum, a second kernel adds the
-# chunks in chunk order
-K6_ROWS = 32
-K6_MAX_CHUNKS = 64
+# K6 splits the output rows into chunks of whole row tiles (`k6_plan`); one
+# block per (tap, chunk) writes its partial [Cin, Cout] sum, a second kernel
+# adds the chunks in chunk order. The f32 kernel takes 32-row tiles
+# (`kWRows` in csrc/sparse_conv.cu) in up to 64 chunks, the bf16 kernel
+# `k6_tile_rows` in about K6_WAVES waves of blocks, at most K6_MAX_CHUNKS:
+# with few taps (conv_out, K = 3) two waves would give chunks of a few tiles
+# whose [Cin, Cout] partials, written and read back, outweigh their rows.
+K6_F32_ROWS = 32
+K6_F32_CHUNKS = 64
+K6_WAVES = 2
+K6_MAX_CHUNKS = 128
 
 
 @dataclass(frozen=True)
@@ -325,11 +340,60 @@ def sparse_conv_wgrad_plain(features: torch.Tensor, g: torch.Tensor, nbr: torch.
     return torch.stack([fz.index_select(0, idx[:, k]).t().mm(g32) for k in range(nbr.shape[1])])
 
 
+def k6_tile_rows(cin: int, cout: int) -> int:
+    """Output rows a step of K6's bf16 kernel stages (`WgradTc::kRows` in
+    csrc/sparse_conv.cu): 128, or 64 where the channels are wide."""
+    return 64 if cin + cout > 128 else 128
+
+
+def k6_plan(n_out: int, tile_rows: int, want_chunks: int) -> Tuple[int, int]:
+    """K6's row split: (chunks, rows a chunk), each chunk a whole number of
+    `tile_rows`-row tiles, none empty, as close to `want_chunks` (and at
+    most K6_MAX_CHUNKS) as whole tiles allow. A function of its arguments
+    only, so a rerun sums in the same order."""
+    tiles = -(-n_out // tile_rows)
+    per = -(-tiles // max(1, min(want_chunks, tiles, K6_MAX_CHUNKS)))
+    return -(-tiles // per), per * tile_rows
+
+
+def k6_chunks_wanted(K: int, sms: int, blocks_per_sm: int) -> int:
+    """Chunks that make about K6_WAVES waves of K6's (tap, chunk) blocks on
+    `sms` SMs that hold `blocks_per_sm` blocks each."""
+    return -(-K6_WAVES * sms * blocks_per_sm // K)
+
+
+@functools.lru_cache(maxsize=None)
+def _k6_blocks_per_sm(cin: int, cout: int, device_index: int) -> int:
+    lib = build.library("sparse_conv")
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        build.check(lib.sparse_conv_wgrad_blocks_per_sm(cin, cout, ctypes.byref(blocks)),
+                    "sparse_conv_wgrad_blocks_per_sm")
+    if blocks.value < 1:
+        raise RuntimeError(f"sparse_conv_wgrad: the bf16 instance {cin}x{cout} fits no SM")
+    return blocks.value
+
+
+def k6_launch_plan(n_out: int, K: int, cin: int, cout: int, dtype: torch.dtype,
+                   device: torch.device) -> Tuple[int, int]:
+    """(chunks, rows a chunk) of a K6 launch on `device`; Cin as padded.
+    float32: 32-row tiles in up to 64 chunks; bfloat16: `k6_tile_rows`,
+    about K6_WAVES waves of blocks on the device's SMs."""
+    if dtype == torch.float32:
+        return k6_plan(n_out, K6_F32_ROWS, K6_F32_CHUNKS)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    want = k6_chunks_wanted(K, sms, _k6_blocks_per_sm(cin, cout, index))
+    return k6_plan(n_out, k6_tile_rows(cin, cout), want)
+
+
 def sparse_conv_wgrad_cuda(features: torch.Tensor, g: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
     """Kernel K6: dW[k] = Σ_o features[nbr[o, k]]ᵀ · g[o], summed in f32 in a
     fixed order (deterministic). features [N_in, Cin] and g [N_out, Cout] in
     one dtype (float32 or bfloat16), nbr [N_out, K] int32 -> [K, Cin, Cout]
-    float32. Cin is zero-padded to a multiple of 16 here, as for K4."""
+    float32. bfloat16 runs on the tensor cores (bf16 `mma.sync`, f32 sums),
+    float32 on the CUDA cores. Cin is zero-padded to a multiple of 16 here,
+    as for K4."""
     n_in, cin = features.shape
     K = nbr.shape[-1]
     _check_conv_args("sparse_conv_wgrad", features, nbr, K, cin)
@@ -345,12 +409,12 @@ def sparse_conv_wgrad_cuda(features: torch.Tensor, g: torch.Tensor, nbr: torch.T
         return torch.zeros(K, cin, cout, dtype=torch.float32, device=g.device)
     dw = torch.empty(K, cin_p, cout, dtype=torch.float32, device=g.device)
     x, g, nbr = _pad16(features, 1), _pad16(g, 1), nbr.contiguous()
-    chunks = min(-(-n_out // K6_ROWS), K6_MAX_CHUNKS)
+    chunks, rows = k6_launch_plan(n_out, K, cin_p, cout, g.dtype, g.device)
     partial = torch.empty(chunks, K, cin_p, cout, dtype=torch.float32, device=g.device)
     lib = build.library("sparse_conv")
     err = lib.sparse_conv_wgrad(
         x.data_ptr(), g.data_ptr(), nbr.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-        n_in, n_out, K, cin_p, cout, chunks, K4_DTYPES[g.dtype],
+        n_in, n_out, K, cin_p, cout, chunks, rows, K4_DTYPES[g.dtype],
         torch.cuda.current_stream(g.device).cuda_stream,
     )
     build.check(err, "sparse_conv_wgrad")
