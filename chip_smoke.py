@@ -21,7 +21,10 @@ Phases, each printed on its own line:
            frames/s, peak memory, kept boxes, launches (each kernel must
            launch)
   K1/K2/K3 kernel vs plain version on the recorded main-path inputs: max
-           error against the stated tolerance, kernel / plain / library ms
+           error against the stated tolerance, kernel / plain / library ms;
+           K1 (the plan and its reduce) must give bit-identical results on
+           two runs, and prints the plan's and the reduce's ms and the
+           plan's (cell, ray) runs, occupied cells and longest interval
   heads    one request's head tensors, kernels vs plain versions, in bf16
            and in f32; rois: the ROIs from the same heads, K2/K3 vs plain
   tiny     a small float32 camera detector on the card vs the same on the CPU
@@ -117,7 +120,9 @@ BF16_OPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 # clips x (4 planes x 14 + 13 tail) + 6 for the IoU
 IOU_OPS_PER_PAIR = 8 * (4 * 14 + 13) + 6
 # tolerances, with their reasons
-K1_TOL = dict(rtol=1e-4, atol=1e-4)  # f32 atomics sum in another order
+# K1 sums (sum of a ray's depths) x context per (cell, ray) run in a fixed
+# order; its plain version sums depth x context with index_add_'s atomics
+K1_TOL = dict(rtol=1e-4, atol=1e-4)
 K2_TOL = dict(rtol=1e-4, atol=1e-5)  # same float math; libm cos/sin may differ by an ulp
 K2_THR_BAND = 1e-5                   # mask bits may differ only where |iou - thr| < band
 # heads, kernels vs plain, as max |diff| over max |ref|: in f32 the pool's
@@ -241,6 +246,18 @@ class PlainVersions:
 def max_err(got, ref):
     d = (got.float() - ref.float()).abs()
     return d.max().item(), (d / ref.float().abs().clamp_min(1e-6)).max().item()
+
+
+def pool_plan_stats(order, offsets, D):
+    """A K1 plan's (cell, ray) runs (one context row read each), occupied
+    (sample, cell) rows and longest interval."""
+    n_in = int(offsets[-1].item())
+    sizes = offsets.diff()
+    row = torch.searchsorted(offsets, torch.arange(n_in, device=order.device), right=True)
+    ray = order[:n_in] // D
+    new_run = torch.ones(n_in, dtype=torch.bool, device=order.device)
+    new_run[1:] = (row[1:] != row[:-1]) | (ray[1:] != ray[:-1])
+    return int(new_run.sum().item()), int((sizes > 0).sum().item()), int(sizes.max().item())
 
 
 def tile_work(nbr, n_in, cin, cout, T):
@@ -395,12 +412,21 @@ def camera_phases(dev, table) -> None:
     ncells = nx * ny
     cell = bev_pool._linear_index(geom_idx, nx, ny, nz).to(torch.int32).contiguous()
     depth, context = depth.float().contiguous(), context.float().contiguous()
-    got = bev_pool.bev_pool_cells_cuda(cell, depth, context, ncells).reshape(BATCH, ny, nx, -1)
+    got = bev_pool.bev_pool_cells_cuda(cell, depth, context, ncells)
+    again = bev_pool.bev_pool_cells_cuda(cell, depth, context, ncells)
     ref = bev_pool.bev_pool_outer_plain(geom_idx, depth, context, voxel_num)
     torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise RuntimeError("K1: two runs on the same inputs are not bit-identical")
+    got = got.reshape(BATCH, ny, nx, -1)
     abs_e, rel_e = max_err(got, ref)
     torch.testing.assert_close(got, ref, **K1_TOL)
+    del again
     ms = cuda_ms(lambda: bev_pool.bev_pool_cells_cuda(cell, depth, context, ncells))
+    order, offsets = bev_pool.bev_pool_plan(cell, ncells)
+    plan_ms = cuda_ms(lambda: bev_pool.bev_pool_plan(cell, ncells))
+    reduce_ms = cuda_ms(lambda: bev_pool.bev_pool_intervals_cuda(order, offsets, depth, context))
+    runs, occupied, max_interval = pool_plan_stats(order, offsets, depth.shape[2])
     plain_ms = cuda_ms(lambda: bev_pool.bev_pool_outer_plain(geom_idx, depth, context, voxel_num), iters=3)
     C = context.shape[-1]
     rows = (cell.long().clamp(max=ncells) + torch.arange(BATCH, device=dev).view(-1, 1, 1, 1, 1) * (ncells + 1)).reshape(-1)
@@ -413,9 +439,10 @@ def camera_phases(dev, table) -> None:
     k1_ops = 2 * n_valid * C
     bound = max(k1_bytes / HBM_BYTES_PER_S, k1_ops / F32_OPS_PER_S) * 1e3
     log("K1 bev_pool_fwd", points=cell.numel(), valid_points=n_valid, max_abs_err=f"{abs_e:.3e}",
-        max_rel_err=f"{rel_e:.3e}",
-        tol=K1_TOL, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
-        bound_ms=f"{bound:.4f}")
+        max_rel_err=f"{rel_e:.3e}", tol=K1_TOL, bit_identical="true", ms=f"{ms:.4f}",
+        plan_ms=f"{plan_ms:.4f}", reduce_ms=f"{reduce_ms:.4f}", runs=runs, occupied_cells=occupied,
+        cells=BATCH * ncells, max_interval=max_interval, plain_ms=f"{plain_ms:.4f}",
+        library_ms=f"{library_ms:.4f}", bound_ms=f"{bound:.4f}")
     table.append(dict(name="bev_pool_fwd", route="cuda", source="unidistill_torch/csrc/bev_pool.cu",
                       replaces="unidistill_tpu/ops/bev_pool.py:158", launches=launches["bev_pool_fwd"],
                       max_abs_err=abs_e, ms=ms, plain_ms=plain_ms, bound_ms=bound,

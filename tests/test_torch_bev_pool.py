@@ -10,6 +10,11 @@ forward. Inputs include points outside the grid, negative coordinates and
 z out of range. Tolerance rtol 1e-5, atol 1e-5: float32 sums of the same
 products in another order.
 
+K1's plan (`bev_pool_plan`, which runs as it is on the CPU) is held to its
+invariants, and its plain reduce (`bev_pool_intervals_plain`) to the JAX
+function, the Pallas scatter in interpret mode and `bev_pool_outer_plain`,
+at the same tolerance.
+
 The kernels themselves run only on the card: tests/test_torch_kernels_cuda.py.
 """
 import numpy as np
@@ -58,8 +63,9 @@ def test_bev_pool_outer_matches_jax(seed, C):
     np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL, atol=ATOL)
 
 
-def test_bev_pool_outer_matches_pallas_interpret():
-    geom, depth, ctx, (nx, ny, nz) = _inputs(0)
+def _pallas_interpret(geom, depth, ctx, voxel_num):
+    """The JAX Pallas scatter `_bev_pool_scatter_pallas` in interpret mode."""
+    nx, ny, nz = voxel_num
     B, NC, D, fH, fW = depth.shape
     C = ctx.shape[-1]
     ncells = nx * ny
@@ -69,10 +75,15 @@ def test_bev_pool_outer_matches_pallas_interpret():
     idx = jnp.pad(idx, ((0, 0), (0, pad)), constant_values=ncells)
     dflat = jnp.pad(jnp.asarray(depth).reshape(B, NP), ((0, 0), (0, pad)))
     rays = np.pad(np.broadcast_to(_rays_np(NC, D, fH, fW), (B, NP)), ((0, 0), (0, pad)))
-    ref = np.asarray(_bev_pool_scatter_pallas(
+    return np.asarray(_bev_pool_scatter_pallas(
         idx, jnp.asarray(rays), dflat,
         jnp.asarray(ctx).reshape(B, NC * fH * fW, C), ncells, interpret=True,
     )).reshape(B, ny, nx, C)
+
+
+def test_bev_pool_outer_matches_pallas_interpret():
+    geom, depth, ctx, (nx, ny, nz) = _inputs(0)
+    ref = _pallas_interpret(geom, depth, ctx, (nx, ny, nz))
     got = port.bev_pool_outer(torch.from_numpy(geom), torch.from_numpy(depth),
                               torch.from_numpy(ctx), (nx, ny, nz))
     np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL, atol=ATOL)
@@ -112,3 +123,124 @@ def test_backward_wrapper_rejects_cpu_tensors():
     g = torch.zeros(2, nx * ny, ctx.shape[-1])
     with pytest.raises(ValueError, match="CUDA"):
         port.bev_pool_bwd_cuda(cell, torch.from_numpy(depth), torch.from_numpy(ctx), g, nx * ny)
+
+
+# ---- K1's plan and its plain reduce -------------------------------------------
+
+
+def _plan(geom, voxel_num):
+    nx, ny, nz = voxel_num
+    cell = port._linear_index(torch.from_numpy(geom), nx, ny, nz).int()
+    order, offsets = port.bev_pool_plan(cell, nx * ny)
+    return cell, order, offsets
+
+
+def _check_plan(cell, order, offsets, ncells):
+    """The plan's invariants, against the cells in the JAX layout: the
+    intervals hold exactly the in-grid points, each point in the interval of
+    its own (sample, cell), ray-major ascending inside an interval."""
+    B, NC, D, fH, fW = cell.shape
+    order, offsets = order.numpy(), offsets.numpy()
+    cell_rm = cell.permute(0, 1, 3, 4, 2).reshape(-1).numpy().astype(np.int64)  # indexed by q
+    valid = (cell_rm >= 0) & (cell_rm < ncells)
+    assert order.dtype == np.int64 and offsets.dtype == np.int64
+    assert offsets.shape == (B * ncells + 1,) and offsets[0] == 0
+    assert (np.diff(offsets) >= 0).all()
+    np.testing.assert_array_equal(np.sort(order), np.arange(cell.numel()))
+    n_in = offsets[-1]
+    assert n_in == valid.sum()
+    np.testing.assert_array_equal(np.sort(order[:n_in]), np.flatnonzero(valid))
+    sample = order // (NC * fH * fW * D)
+    row = np.repeat(np.arange(B * ncells), np.diff(offsets))
+    np.testing.assert_array_equal(sample[:n_in] * ncells + cell_rm[order[:n_in]], row)
+    np.testing.assert_array_equal(sample[:n_in], row // ncells)  # no interval spans two samples
+    inside = np.diff(row) == 0
+    assert (np.diff(order[:n_in])[inside] > 0).all()  # ray, then depth bin, ascending
+    return order, offsets
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_plan_partitions_the_in_grid_points(seed):
+    geom, _, _, vn = _inputs(seed, B=3)
+    cell, order, offsets = _plan(geom, vn)
+    order, offsets = _check_plan(cell, order, offsets, vn[0] * vn[1])
+    assert 0 < offsets[-1] < order.size and (np.diff(offsets) > 1).any()
+
+
+def _edge_geom(case, seed=0, B=3, NC=2, D=3, fH=4, fW=4):
+    rng = np.random.RandomState(seed)
+    geom = np.zeros((B, NC, D, fH, fW, 3), np.int32)
+    if case == "all_out_of_grid":
+        geom[...] = rng.randint(-9, 20, geom.shape)
+        geom[..., 2] = rng.choice([-1, 1, 5], size=geom.shape[:-1])
+    elif case == "all_in_one_cell":
+        geom[..., 0], geom[..., 1] = 5, 3
+    elif case == "negative_coordinates":
+        geom[...] = rng.randint(-8, 8, geom.shape)
+        geom[..., 2] = 0
+    return geom
+
+
+@pytest.mark.parametrize("case", ["all_out_of_grid", "all_in_one_cell", "negative_coordinates"])
+def test_plan_edge_cases(case):
+    geom = _edge_geom(case)
+    B, NC, D, fH, fW, _ = geom.shape
+    vn = (8, 8, 1)
+    ncells = vn[0] * vn[1]
+    depth = np.random.RandomState(1).rand(B, NC, D, fH, fW).astype(np.float32)
+    ctx = np.random.RandomState(2).randn(B, NC, fH, fW, 64).astype(np.float32)
+    cell, order, offsets = _plan(geom, vn)
+    order, offsets = _check_plan(cell, order, offsets, ncells)
+    got = port.bev_pool_intervals_plain(torch.from_numpy(order), torch.from_numpy(offsets),
+                                        torch.from_numpy(depth), torch.from_numpy(ctx))
+    ref = port.bev_pool_outer_plain(torch.from_numpy(geom), torch.from_numpy(depth),
+                                    torch.from_numpy(ctx), vn).reshape(B, ncells, -1)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=RTOL, atol=ATOL)
+    sizes = np.diff(offsets)
+    if case == "all_out_of_grid":
+        assert (offsets == 0).all() and (got == 0).all()
+    elif case == "all_in_one_cell":
+        per_sample = NC * D * fH * fW
+        assert sorted(np.flatnonzero(sizes)) == [b * ncells + 3 * 8 + 5 for b in range(B)]
+        assert (sizes[sizes > 0] == per_sample).all()
+        np.testing.assert_array_equal(order, np.arange(B * per_sample))
+    else:
+        assert 0 < offsets[-1] < order.size
+
+
+@pytest.mark.parametrize("seed,C", [(0, 128), (1, 32), (2, 300)])
+def test_intervals_plain_matches_jax(seed, C):
+    geom, depth, ctx, vn = _inputs(seed, B=3, C=C)
+    nx, ny, _ = vn
+    _, order, offsets = _plan(geom, vn)
+    got = port.bev_pool_intervals_plain(order, offsets, torch.from_numpy(depth),
+                                        torch.from_numpy(ctx)).reshape(3, ny, nx, C)
+    assert got.dtype == torch.float32
+    ref = np.asarray(jax_bev_pool_outer(jnp.asarray(geom), jnp.asarray(depth), jnp.asarray(ctx), vn))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL, atol=ATOL)
+    plain = port.bev_pool_outer_plain(torch.from_numpy(geom), torch.from_numpy(depth),
+                                      torch.from_numpy(ctx), vn)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=RTOL, atol=ATOL)
+
+
+def test_intervals_plain_matches_pallas_interpret():
+    geom, depth, ctx, vn = _inputs(4)
+    _, order, offsets = _plan(geom, vn)
+    got = port.bev_pool_intervals_plain(order, offsets, torch.from_numpy(depth), torch.from_numpy(ctx))
+    ref = _pallas_interpret(geom, depth, ctx, vn)
+    np.testing.assert_allclose(got.numpy().reshape(ref.shape), ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_plan_is_reproducible(seed):
+    geom, _, _, vn = _inputs(seed, B=3)
+    _, o1, f1 = _plan(geom, vn)
+    _, o2, f2 = _plan(geom.copy(), vn)
+    assert torch.equal(o1, o2) and torch.equal(f1, f2)
+
+
+def test_reduce_wrapper_rejects_cpu_tensors():
+    geom, depth, ctx, vn = _inputs(0)
+    _, order, offsets = _plan(geom, vn)
+    with pytest.raises(ValueError, match="CUDA"):
+        port.bev_pool_intervals_cuda(order, offsets, torch.from_numpy(depth), torch.from_numpy(ctx))

@@ -5,7 +5,13 @@ JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py -m cuda
 
-Tolerances: K1 rtol/atol 1e-5 (float32 atomics sum in another order); K5
+Tolerances: K1 rtol/atol 1e-5 (it sums (sum of a ray's depths) x context
+per (cell, ray) run where the plain version sums depth x context with
+`index_add_`'s atomics: float32 sums in another order), and bit-identical
+on a rerun (no atomics); where a cell sums hundreds of points (the reruns,
+all points in one cell) K1 against the plain version in float64 at rtol/atol
+1e-5, because float32 sums of 500 products in two orders differ by about
+1e-5 near a cancellation; K1's plan on the card equal to the CPU's; K5
 rtol/atol 1e-5 (no atomics; the channel dot products sum in another order);
 the K1/K5 gradient against float64 central differences of the plain forward
 rtol 1e-5 (the forward is bilinear, so the differences are exact up to
@@ -72,6 +78,66 @@ def test_bev_pool_kernel_matches_plain(cuda_device, C):
     ref = bev_pool.bev_pool_outer_plain(*args, vn)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def _large_pool_inputs(device, seed=5, C=256):
+    """Up to 72 points a cell, in runs along the rays."""
+    geom, depth, ctx, vn = _pool_inputs(seed, B=2, NC=6, D=40, fH=8, fW=22, C=C, nx=24, ny=24)
+    geom[..., 0] = (geom[..., 0] + np.arange(40)[:, None, None] // 4) % 30 - 3  # 4 bins a cell along a ray
+    return [torch.from_numpy(a).to(device) for a in (geom, depth, ctx)], vn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [256, 300])
+def test_bev_pool_kernel_is_bit_identical_on_reruns(cuda_device, C):
+    args, vn = _large_pool_inputs(cuda_device, C=C)
+    first = bev_pool.bev_pool_outer(*args, vn)
+    for _ in range(3):
+        assert torch.equal(bev_pool.bev_pool_outer(*args, vn), first)
+    ref = bev_pool.bev_pool_outer_plain(args[0], args[1].double(), args[2].double(), vn)
+    torch.testing.assert_close(first.double(), ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_bev_pool_plan_on_the_card_equals_the_cpu(cuda_device):
+    args, (nx, ny, nz) = _large_pool_inputs(cuda_device)
+    cell = bev_pool._linear_index(args[0], nx, ny, nz).int()
+    order, offsets = bev_pool.bev_pool_plan(cell, nx * ny)
+    order_c, offsets_c = bev_pool.bev_pool_plan(cell.cpu(), nx * ny)
+    assert torch.equal(order.cpu(), order_c) and torch.equal(offsets.cpu(), offsets_c)
+    assert (offsets.diff() > 32).any()  # a cell takes more than one 32-point batch
+
+
+@pytest.mark.cuda
+def test_bev_pool_forward_makes_no_host_sync(cuda_device):
+    """The K1 path (cells, plan, reduce) under the sync debug mode "error"."""
+    args, vn = _large_pool_inputs(cuda_device)
+    ref = bev_pool.bev_pool_outer(*args, vn)  # builds and loads the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):  # the mode catches a sync (a control)
+            args[1].nonzero()
+        out = bev_pool.bev_pool_outer(*args, vn)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [64, 300])
+def test_bev_pool_kernel_all_points_in_one_cell(cuda_device, C):
+    geom, depth, ctx, vn = _pool_inputs(6, C=C)
+    geom[..., 0], geom[..., 1], geom[..., 2] = 7, 4, 0
+    args = [torch.from_numpy(a).to(cuda_device) for a in (geom, depth, ctx)]
+    from unidistill_torch.kernels import build
+    before = build.LAUNCHES["bev_pool_fwd"]
+    got = bev_pool.bev_pool_outer(*args, vn)
+    assert build.LAUNCHES["bev_pool_fwd"] == before + 1
+    ref = bev_pool.bev_pool_outer_plain(args[0], args[1].double(), args[2].double(), vn)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.double(), ref, rtol=1e-5, atol=1e-5)
+    assert (got[:, 4, 7] != 0).all() and (got.sum(-1) != 0).sum() == 2
 
 
 @pytest.mark.cuda

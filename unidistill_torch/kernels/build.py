@@ -43,8 +43,8 @@ _LOCK = threading.Lock()
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "bev_pool": {
-        # cell, depth, ctx, out, n_rays, rays_per_batch, D, HW, C, ncells, stream
-        "bev_pool_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        # order, offsets, depth, ctx, out, n_rows, D, HW, C, stream
+        "bev_pool_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
         # cell, depth, ctx, g, g_depth, g_ctx, n_rays, rays_per_batch, D, HW, C, ncells, stream
         "bev_pool_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     },

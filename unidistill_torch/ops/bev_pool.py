@@ -11,10 +11,14 @@ Every frustum point whose (x, y, z) lies inside the grid adds
 depth[p] * context[ray(p)] into BEV cell (y, x); other points are dropped.
 
 On a CUDA tensor this runs `BevPool`, an autograd Function whose forward is
-kernel K1 and whose backward is kernel K5 (`csrc/bev_pool.cu`); on a CPU
-tensor it runs `bev_pool_outer_plain`, the same function in plain PyTorch,
-which autograd differentiates. K5 computes, for the gradient g [B, ncells, C]
-of the output,
+a plan and kernel K1 and whose backward is kernel K5 (`csrc/bev_pool.cu`);
+on a CPU tensor it runs `bev_pool_outer_plain`, the same function in plain
+PyTorch, which autograd differentiates. The plan (`bev_pool_plan`, plain
+PyTorch on the tensors' device, no host sync) sorts the points stably by
+output row b*ncells + cell; K1 reduces each row's interval of that order
+with one warp and writes the row once, so its result is bit-identical from
+run to run (`bev_pool_intervals_plain` is its plain version given a plan).
+K5 computes, for the gradient g [B, ncells, C] of the output,
 
   g_depth[p]    = <g[b, cell[p]], context[ray(p)]>     (0 outside the grid)
   g_context[r]  = sum of depth[p]·g[b, cell[p]] over the points p of ray r
@@ -59,16 +63,20 @@ def bev_pool_outer_plain(
     return out.reshape(B, ncells + 1, C)[:, :ncells].reshape(B, ny, nx, C)
 
 
+def _check_tensors(fn: str, *specs) -> None:
+    for name, t, dt in specs:
+        if not t.is_cuda:
+            raise ValueError(f"{fn}: {name} must be a CUDA tensor")
+        if t.dtype != dt:
+            raise ValueError(f"{fn}: {name} must be {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous")
+
+
 def _check_pool_args(cell: torch.Tensor, depth: torch.Tensor, context: torch.Tensor) -> None:
     B, NC, D, fH, fW = depth.shape
-    for name, t, dt in (("cell", cell, torch.int32), ("depth", depth, torch.float32),
-                        ("context", context, torch.float32)):
-        if not t.is_cuda:
-            raise ValueError(f"bev_pool: {name} must be a CUDA tensor")
-        if t.dtype != dt:
-            raise ValueError(f"bev_pool: {name} must be {dt}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"bev_pool: {name} must be contiguous")
+    _check_tensors("bev_pool", ("cell", cell, torch.int32), ("depth", depth, torch.float32),
+                   ("context", context, torch.float32))
     if tuple(cell.shape) != tuple(depth.shape):
         raise ValueError(f"bev_pool: cell {tuple(cell.shape)} != depth {tuple(depth.shape)}")
     if context.dim() != 5 or tuple(context.shape[:4]) != (B, NC, fH, fW) or context.shape[4] < 1:
@@ -77,25 +85,82 @@ def _check_pool_args(cell: torch.Tensor, depth: torch.Tensor, context: torch.Ten
         raise ValueError("bev_pool: too many camera rays for int32 indexing")
 
 
-def bev_pool_cells_cuda(
-    cell: torch.Tensor, depth: torch.Tensor, context: torch.Tensor, ncells: int,
+def bev_pool_plan(cell: torch.Tensor, ncells: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's plan. cell: [B, NC, D, fH, fW] int flat BEV cells (outside
+    [0, ncells) = dropped). Numbers the points ray-major, q = ray*D + d with
+    ray = (b, n, h, w), and sorts them stably by output row b*ncells + cell,
+    the points outside the grid last. Returns (order [N] int64: the q of the
+    points, row by row, ray and then depth bin ascending inside a row;
+    offsets [B*ncells + 1] int64: row k's points are
+    order[offsets[k]:offsets[k+1]], and none past offsets[-1] is in the
+    grid). Runs on the tensor's device without a host sync."""
+    B = cell.shape[0]
+    n_rows = B * ncells
+    if n_rows >= 2**31:
+        raise ValueError("bev_pool_plan: too many BEV rows for int32 keys")
+    base = torch.arange(0, n_rows, ncells, dtype=torch.int32, device=cell.device).view(B, 1, 1, 1, 1)
+    key = torch.where((cell >= 0) & (cell < ncells), cell.int() + base, n_rows)
+    key, order = torch.sort(key.permute(0, 1, 3, 4, 2).reshape(-1), stable=True)
+    offsets = torch.searchsorted(key, torch.arange(n_rows + 1, dtype=torch.int32, device=cell.device))
+    return order, offsets
+
+
+def bev_pool_intervals_plain(
+    order: torch.Tensor, offsets: torch.Tensor, depth: torch.Tensor, context: torch.Tensor,
 ) -> torch.Tensor:
-    """Kernel K1. cell: [B, NC, D, fH, fW] int32 flat cells (out of range =
-    dropped); depth: same shape f32; context: [B, NC, fH, fW, C] f32.
-    Returns [B, ncells, C] f32."""
+    """Plain version of K1 given a `bev_pool_plan`: gather each point's
+    depth and context row in the plan's order, multiply, and sum each row's
+    interval (the points past offsets[-1] into a dropped row). Returns
+    [B, ncells, C] in float32, or float64 for float64 inputs."""
     B, NC, D, fH, fW = depth.shape
     C = context.shape[-1]
-    _check_pool_args(cell, depth, context)
-    out = torch.zeros(B, ncells, C, dtype=torch.float32, device=depth.device)
+    n_rows = offsets.numel() - 1
+    dt = torch.promote_types(torch.promote_types(depth.dtype, context.dtype), torch.float32)
+    w = depth.to(dt).permute(0, 1, 3, 4, 2).reshape(-1)[order]
+    prod = w[:, None] * context.to(dt).reshape(-1, C)[order // D]
+    pos = torch.arange(order.numel(), device=order.device)
+    row = torch.searchsorted(offsets, pos, right=True) - 1
+    out = torch.zeros(n_rows + 1, C, dtype=dt, device=depth.device)
+    out.index_add_(0, row, prod)
+    return out[:n_rows].reshape(B, n_rows // B, C)
+
+
+def bev_pool_intervals_cuda(
+    order: torch.Tensor, offsets: torch.Tensor, depth: torch.Tensor, context: torch.Tensor,
+) -> torch.Tensor:
+    """Kernel K1: the reduce of a `bev_pool_plan` (order, offsets) over
+    depth [B, NC, D, fH, fW] f32 and context [B, NC, fH, fW, C] f32.
+    Returns [B, ncells, C] f32; every row is written once."""
+    B, NC, D, fH, fW = depth.shape
+    C = context.shape[-1]
+    n_rows = offsets.numel() - 1
+    _check_tensors("bev_pool", ("order", order, torch.int64), ("offsets", offsets, torch.int64),
+                   ("depth", depth, torch.float32), ("context", context, torch.float32))
+    if order.numel() != depth.numel() or n_rows % B or not 0 < n_rows < 2**31:
+        raise ValueError(f"bev_pool: a plan of {order.numel()} points and {n_rows} rows "
+                         f"does not match depth {tuple(depth.shape)}")
+    if tuple(context.shape[:4]) != (B, NC, fH, fW):
+        raise ValueError(f"bev_pool: context {tuple(context.shape)} does not match depth")
+    out = torch.empty(B, n_rows // B, C, dtype=torch.float32, device=depth.device)
     lib = build.library("bev_pool")
     err = lib.bev_pool_fwd(
-        cell.data_ptr(), depth.data_ptr(), context.data_ptr(), out.data_ptr(),
-        B * NC * fH * fW, NC * fH * fW, D, fH * fW, C, ncells,
-        torch.cuda.current_stream(depth.device).cuda_stream,
+        order.data_ptr(), offsets.data_ptr(), depth.data_ptr(), context.data_ptr(), out.data_ptr(),
+        n_rows, D, fH * fW, C, torch.cuda.current_stream(depth.device).cuda_stream,
     )
     build.check(err, "bev_pool_fwd")
     build.LAUNCHES["bev_pool_fwd"] += 1
     return out
+
+
+def bev_pool_cells_cuda(
+    cell: torch.Tensor, depth: torch.Tensor, context: torch.Tensor, ncells: int,
+) -> torch.Tensor:
+    """The plan and kernel K1. cell: [B, NC, D, fH, fW] int32 flat cells (out
+    of range = dropped); depth: same shape f32; context: [B, NC, fH, fW, C]
+    f32. Returns [B, ncells, C] f32, bit-identical from run to run."""
+    _check_pool_args(cell, depth, context)
+    order, offsets = bev_pool_plan(cell, ncells)
+    return bev_pool_intervals_cuda(order, offsets, depth, context)
 
 
 def bev_pool_outer_bwd_plain(
