@@ -36,7 +36,9 @@ Phases, each printed on its own line:
            `torch.mm` of a prebuilt im2col) / bound ms; the bf16 kernel's
            dense-tile work (active (128-row tile, tap) pairs x 128 x Cin x
            Cout) beside the pairs' work, and its TFLOP/s over the former
-  lidar heads, lidar rois, lidar tiny   as heads, rois and tiny, for LiDAR
+  lidar heads, lidar rois, lidar tiny   as heads, rois and tiny, for LiDAR;
+           the tiny model's voxel coords and features on the card equal the
+           CPU's bit for bit
   distill train   the camera student (`camera_exp().model`, seeded random
            weights) learns from the frozen LiDAR teacher (`lidar_exp()
            .model`, BatchNorm calibrated) on `train_batch(..., B=4)`: one
@@ -47,7 +49,11 @@ Phases, each printed on its own line:
   camera train    as distill train, for the camera detector's `train_step`
            alone (K1 and K5 once a step, no K4)
   K5       the BEV-pool backward on the g recorded from a distill step,
-           kernel vs plain version; kernel / plain / bound ms
+           kernel vs plain version; two runs must be bit-identical; kernel /
+           plain / bound ms, and the g rows read by the ray-owned design
+           before (ray runs) and by the column-owned kernel (column reads,
+           modelled from its schedule); then the same on the cells of the
+           training image augmentation (`K5 train_ida`)
   train tiny      a small float32 camera train step on the card vs the same
            step on the CPU (TF32 off): loss, metrics and every gradient
   lidar train     the LiDAR detector (`lidar_exp().model`, seeded random
@@ -623,7 +629,8 @@ def lidar_phases(dev, table) -> None:
     in_g, in_c = model_inputs(tbatch, tcfg, dev, training=False), model_inputs(tbatch, tcfg, "cpu", training=False)
     if not torch.equal(in_g["voxel_coords"].cpu(), in_c["voxel_coords"]):
         raise RuntimeError("lidar tiny: the card puts points in other voxels than the CPU")
-    torch.testing.assert_close(in_g["voxel_feats"].cpu(), in_c["voxel_feats"], rtol=1e-6, atol=1e-6)
+    if not torch.equal(in_g["voxel_feats"].cpu(), in_c["voxel_feats"]):  # no atomics: the CPU's sums
+        raise RuntimeError("lidar tiny: the card's voxel features differ from the CPU's")
     with torch.no_grad():
         hg, hc = det_gpu.model(**in_g), det_cpu.model(**in_c)
     card_vs_cpu("lidar tiny", tcfg, hg, hc)
@@ -694,11 +701,11 @@ def train_phases(dev, table) -> None:
     """The training paths: distill train (main path), camera train, K5,
     train tiny."""
     from unidistill_torch.configs.nuscenes import (
-        DISTILL_VARIANTS, camera_exp, distill_exp, lidar_exp, tiny_model)
+        DISTILL_VARIANTS, DataConfig, camera_exp, distill_exp, lidar_exp, tiny_model)
     from unidistill_torch.models.bevfusion import BEVFusionCenterHead
     from unidistill_torch.ops import bev_pool
     from unidistill_torch.serving.synthetic import (
-        calibrate_batchnorm, random_state_dict, small_batch, train_batch)
+        calibrate_batchnorm, nuscenes_cells, random_state_dict, small_batch, train_batch)
     from unidistill_torch.training import steps
     from unidistill_torch.training.train_state import TrainState, make_optimizer
 
@@ -748,8 +755,12 @@ def train_phases(dev, table) -> None:
     # ---- K5: the recorded backward, kernel vs plain -------------------------
     cell, depth, context, g, ncells = rec_args
     gd_k, gc_k = bev_pool.bev_pool_bwd_cuda(cell, depth, context, g, ncells)
+    again = bev_pool.bev_pool_bwd_cuda(cell, depth, context, g, ncells)
     gd_p, gc_p = bev_pool.bev_pool_outer_bwd_plain(cell, depth, context, g, ncells)
     torch.cuda.synchronize()
+    if not (torch.equal(gd_k, again[0]) and torch.equal(gc_k, again[1])):
+        raise RuntimeError("K5: two runs on the same inputs are not bit-identical")
+    del again
     errs = []
     for got, ref in ((gd_k, gd_p), (gc_k, gc_p)):
         scale = ref.abs().max().clamp_min(1e-30)
@@ -762,16 +773,37 @@ def train_phases(dev, table) -> None:
     k5_bytes = (cell.numel() * 4 + depth.numel() * 4 * 2 + context.numel() * 4 * 2 + g.numel() * 4)
     k5_ops = 4 * n_valid * C  # two multiply-adds per channel per valid point
     bytes_ms, ops_ms = k5_bytes / HBM_BYTES_PER_S * 1e3, k5_ops / F32_OPS_PER_S * 1e3
+    ray_runs, column_reads = bev_pool.bev_pool_bwd_reads(cell, ncells)
     log("K5 bev_pool_bwd", points=cell.numel(), valid_points=n_valid, C=C,
         g_max=f"{g.abs().max().item():.3e}", max_abs_err_depth=f"{errs[0]:.3e}",
-        max_abs_err_context=f"{errs[1]:.3e}", tol=f"{K5_TOL} of max|ref|", ms=f"{ms:.4f}",
+        max_abs_err_context=f"{errs[1]:.3e}", tol=f"{K5_TOL} of max|ref|", bit_identical="true",
+        ray_runs=ray_runs, column_reads=column_reads, g_row_mb=f"{column_reads * C * 4 / 1e6:.1f}", ms=f"{ms:.4f}",
         plain_ms=f"{plain_ms:.4f}", bound_ms=f"{max(bytes_ms, ops_ms):.4f}",
         bound_by="bytes" if bytes_ms >= ops_ms else "operations")
     table.append(dict(name="bev_pool_bwd", route="cuda", source="unidistill_torch/csrc/bev_pool.cu",
                       replaces="unidistill_tpu/ops/bev_pool.py:282", launches=launches["bev_pool_bwd"],
                       max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
                       bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=None))
-    del rec_args, cell, depth, context, g, gd_k, gc_k, gd_p, gc_p
+    del gd_k, gc_k, gd_p, gc_p
+
+    # K5 on the same depth, context and g, but the cells of the training
+    # image augmentation (rays of a column share fewer cells)
+    cell = nuscenes_cells(camera_exp().model, cell.shape[0], seed=21, data=DataConfig()).to(dev)
+    out = bev_pool.bev_pool_bwd_cuda(cell, depth, context, g, ncells)
+    again = bev_pool.bev_pool_bwd_cuda(cell, depth, context, g, ncells)
+    if not (torch.equal(out[0], again[0]) and torch.equal(out[1], again[1])):
+        raise RuntimeError("K5 (train_ida): two runs on the same inputs are not bit-identical")
+    errs = []
+    for got, ref in zip(out, bev_pool.bev_pool_outer_bwd_plain(cell, depth, context, g, ncells)):
+        scale = ref.abs().max().clamp_min(1e-30)
+        torch.testing.assert_close(got / scale, ref / scale, **K5_TOL)
+        errs.append(max_err(got, ref)[0])
+    del out, again
+    ms = cuda_ms(lambda: bev_pool.bev_pool_bwd_cuda(cell, depth, context, g, ncells))
+    ray_runs, column_reads = bev_pool.bev_pool_bwd_reads(cell, ncells)
+    log("K5 train_ida", max_abs_err=f"{max(errs):.3e}", bit_identical="true", ray_runs=ray_runs,
+        column_reads=column_reads, ms=f"{ms:.4f}")
+    del rec_args, cell, depth, context, g
     torch.cuda.empty_cache()
 
     # ---- small input: a train step on the card against the CPU -------------

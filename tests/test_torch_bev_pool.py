@@ -13,7 +13,9 @@ products in another order.
 K1's plan (`bev_pool_plan`, which runs as it is on the CPU) is held to its
 invariants, and its plain reduce (`bev_pool_intervals_plain`) to the JAX
 function, the Pallas scatter in interpret mode and `bev_pool_outer_plain`,
-at the same tolerance.
+at the same tolerance. `bev_pool_bwd_reads`, the g rows K5 reads before and
+after its redesign, is held to a count in numpy, and the training image
+augmentation of the K5 geometries to the JAX data pipeline's.
 
 The kernels themselves run only on the card: tests/test_torch_kernels_cuda.py.
 """
@@ -244,3 +246,73 @@ def test_reduce_wrapper_rejects_cpu_tensors():
     _, order, offsets = _plan(geom, vn)
     with pytest.raises(ValueError, match="CUDA"):
         port.bev_pool_intervals_cuda(order, offsets, torch.from_numpy(depth), torch.from_numpy(ctx))
+
+
+def _reads_numpy(cell, ncells, columns, rays_per_pass):
+    """(ray runs, column reads) of `bev_pool_bwd_reads`, counted column
+    group by column group in numpy."""
+    q = np.where((cell >= 0) & (cell < ncells), cell, -1)
+    B, NC, D, fH, fW = q.shape
+    runs = reads = 0
+    for b in range(B):
+        for n in range(NC):
+            for w in range(fW):
+                for h in range(fH):
+                    qv = q[b, n, :, h, w][q[b, n, :, h, w] >= 0]
+                    runs += int(len(qv) > 0) + int((qv[1:] != qv[:-1]).sum())
+            for w0 in range(0, fW, columns):
+                for h0 in range(0, fH, rays_per_pass):
+                    part = q[b, n, :, h0:h0 + rays_per_pass, w0:w0 + columns].reshape(D, -1)
+                    for d in range(D):
+                        if d == 0 or (part[d] != part[d - 1]).any():
+                            reads += len(set(part[d][part[d] >= 0].tolist()))
+    return runs, reads
+
+
+@pytest.mark.parametrize("case", ["random_fH20", "nuscenes_full_width", "train_ida_pitch2_full_width"])
+def test_bwd_reads_match_numpy(case):
+    """K5's g-row reads: the counter against numpy, on random cells over
+    two passes of a column (fH 20) and an odd number of columns, and on the
+    nuScenes-like cameras at full width (B 4, six cameras, D 112, 16 x 44),
+    where the column reads are at most a tenth of the ray runs; under the
+    training image augmentation and a 2 degree pitch, where the rays of a
+    column share fewer cells, at most a fifth."""
+    if case == "random_fH20":
+        rng = np.random.RandomState(0)
+        ncells = 12
+        cell = rng.choice([-1, 0, 3, 3, 5, 7, 11, 12], size=(2, 2, 9, 20, 3)).astype(np.int32)
+        cell[:, :, 2:5] = cell[:, :, 2:3]  # bins whose cells repeat
+    else:
+        from unidistill_torch.configs.nuscenes import DataConfig, camera_exp
+        from unidistill_torch.serving.synthetic import nuscenes_cells
+        ncells = 180 * 180
+        kw = dict(data=DataConfig(), pitch_deg=2.0) if case.startswith("train_ida") else {}
+        cell = nuscenes_cells(camera_exp().model, 4, seed=21, **kw).numpy()
+    runs, reads = port.bev_pool_bwd_reads(torch.from_numpy(cell), ncells)
+    assert (runs, reads) == _reads_numpy(cell, ncells, port.K5_COLUMNS, port.K5_RAYS_PER_PASS)
+    if case == "nuscenes_full_width":
+        assert runs == 1_319_612 and reads <= runs / 10
+    elif case.startswith("train_ida"):
+        assert reads <= runs / 5
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_train_ida_mats_match_jax_pipeline(seed):
+    """`serving.synthetic.train_ida_mats` (the K5 geometries' training image
+    augmentation) equals the JAX data pipeline's IDA matrices for the same
+    draws: `sample_ida_augs` then `img_transform`, image by image, at 1e-9."""
+    from PIL import Image
+
+    from unidistill_tpu.configs.nuscenes import DataConfig as JaxDataConfig
+    from unidistill_tpu.data import transforms as T
+
+    from unidistill_torch.configs.nuscenes import IMG_DIM, DataConfig
+    from unidistill_torch.serving.synthetic import train_ida_mats
+    jd = JaxDataConfig()
+    got = train_ida_mats(DataConfig(), IMG_DIM, 6, np.random.RandomState(seed))
+    rng = np.random.RandomState(seed)
+    img = Image.new("RGB", (jd.src_w, jd.src_h))
+    for i in range(6):
+        aug = T.sample_ida_augs(rng, (jd.src_h, jd.src_w), IMG_DIM, jd.ida_resize_lim, jd.ida_rot_lim,
+                                jd.ida_rand_flip, jd.ida_bot_pct_lim, True)
+        np.testing.assert_allclose(got[i], T.img_transform(img, *aug)[1], rtol=1e-9, atol=1e-9)

@@ -12,7 +12,10 @@ on a rerun (no atomics); where a cell sums hundreds of points (the reruns,
 all points in one cell) K1 against the plain version in float64 at rtol/atol
 1e-5, because float32 sums of 500 products in two orders differ by about
 1e-5 near a cancellation; K1's plan on the card equal to the CPU's; K5
-rtol/atol 1e-5 (no atomics; the channel dot products sum in another order);
+rtol/atol 1e-5 (no atomics; the channel dot products sum in another order),
+bit-identical on a rerun, and at full width against the plain version in
+float64 at 1e-5; the voxeliser's features bit-identical on a rerun and
+equal to the CPU's (each voxel sums its points in point order, no atomics);
 the K1/K5 gradient against float64 central differences of the plain forward
 rtol 1e-5 (the forward is bilinear, so the differences are exact up to
 float64 round-off; the kernels sum in float32); K2
@@ -158,6 +161,121 @@ def test_bev_pool_backward_kernel_matches_plain(cuda_device, C, fH, fW):
     assert outside.any() and (gd[outside] == 0).all()
     torch.testing.assert_close(gd, rd, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(gc, rc, rtol=1e-5, atol=1e-5)
+
+
+def _bwd_case(device, cell, C, seed):
+    """Random depth, context and g for the flat cells `cell` (180 x 180 grid)."""
+    B, NC, D, fH, fW = cell.shape
+    rng = np.random.RandomState(seed)
+    depth = torch.from_numpy(rng.rand(B, NC, D, fH, fW).astype(np.float32))
+    ctx = torch.from_numpy(rng.randn(B, NC, fH, fW, C).astype(np.float32))
+    g = torch.from_numpy(rng.randn(B, 180 * 180, C).astype(np.float32))
+    return [t.to(device) for t in (cell.contiguous(), depth, ctx, g)]
+
+
+def _bwd_plain_f64(cell, depth, ctx, g, ncells):
+    """K5's function in float64, one sample at a time."""
+    gd, gc = [], []
+    for b in range(cell.shape[0]):
+        valid = (cell[b] >= 0) & (cell[b] < ncells)
+        rows = torch.cat([g[b].double(), g.new_zeros(1, g.shape[-1], dtype=torch.float64)])
+        rows = rows[torch.where(valid, cell[b], ncells).long()]  # [NC, D, fH, fW, C]
+        gd.append((rows * ctx[b].double()[:, None]).sum(-1))
+        gc.append((rows * depth[b].double()[..., None]).sum(1))
+    return torch.stack(gd), torch.stack(gc)
+
+
+def _nuscenes_cells(B, fH, fW, **kw):
+    """The level nuScenes-like cameras at a feature map of fH x fW: the rays
+    of a column share their cell at every depth bin, where it is in the
+    grid (the z range drops the far points of the upper rows); `kw` as
+    `nuscenes_cells` (the training image augmentation, a pitch)."""
+    import dataclasses
+    from unidistill_torch.configs.nuscenes import camera_exp
+    from unidistill_torch.serving.synthetic import nuscenes_cells
+    cfg = camera_exp().model
+    ce = cfg.camera_encoder
+    ce = dataclasses.replace(ce, final_dim=(fH * ce.downsample_factor, fW * ce.downsample_factor))
+    return nuscenes_cells(dataclasses.replace(cfg, camera_encoder=ce), B, seed=0, **kw)
+
+
+def _mixed_cells(B=2, NC=2, D=24, fH=16, fW=5, ncells=180 * 180, seed=7):
+    """Columns whose rays disagree: per column, rays in 1-3 cells that
+    change every few bins, rays out of the grid (both ends of the range),
+    a ray that keeps its cell while the others change, and column w = 0
+    wholly outside the grid."""
+    rng = np.random.RandomState(seed)
+    h, d = np.arange(fH)[:, None], np.arange(D)[None, :]
+    cell = np.empty((B, NC, D, fH, fW), np.int64)
+    for b in range(B):
+        for n in range(NC):
+            for w in range(fW):
+                pick = rng.randint(0, ncells, (3, D))
+                q = pick[(h % 3 + d // 4) % 3, d]  # [fH, D]
+                q[1] = pick[0, 0]                  # one ray stays in its cell
+                q[2, ::5] = -1
+                q[-1, 1::7] = ncells
+                q[0, :] = pick[0, d // 6]          # runs of six bins
+                cell[b, n, :, :, w] = q.T
+    cell[..., 0] = rng.choice([-1, ncells, ncells + 3], size=cell[..., 0].shape)
+    return torch.from_numpy(cell.astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["level_fH4", "mixed_fH16", "mixed_fH3_C300", "mixed_fH16_C37", "nuscenes_fH16",
+                                  "mixed_fH20", "mixed_fH20_C300", "train_ida_fH16", "train_ida_pitch2_fH16"])
+def test_bev_pool_backward_kernel_on_camera_columns(cuda_device, case):
+    """K5 against its plain version (rtol/atol 1e-5) on column geometries:
+    the level cameras at fH 4, fW 6 (every column shares its in-grid cell);
+    mixed cells with a column wholly outside the grid at fH 16, C 256, at
+    fH 3, C 300, and at C 37 (rows of single floats, not float4s); at fH 20
+    (two passes over a column's rays), C 256 and C 300; the cameras at full
+    width, fH 16, fW 44, level, under the training image augmentation, and
+    under it pitched 2 degrees down."""
+    from unidistill_torch.configs.nuscenes import DataConfig
+    from unidistill_torch.kernels import build
+    ncells = 180 * 180
+    C = {"level_fH4": 64, "mixed_fH3_C300": 300, "mixed_fH16_C37": 37, "mixed_fH20_C300": 300}.get(case, 256)
+    if case == "level_fH4":
+        cell = _nuscenes_cells(2, 4, 6)
+        q = torch.where(cell < ncells, cell, -1).permute(0, 1, 4, 2, 3).sort(-1).values
+        distinct = (q >= 0) & torch.cat([torch.ones_like(q[..., :1], dtype=torch.bool), q[..., 1:] != q[..., :-1]], -1)
+        assert distinct.sum(-1).max() == 1 and (cell >= ncells).any()
+    elif case == "nuscenes_fH16":
+        cell = _nuscenes_cells(1, 16, 44)
+    elif case.startswith("train_ida"):
+        cell = _nuscenes_cells(2, 16, 44, data=DataConfig(), pitch_deg=2.0 if "pitch2" in case else 0.0)
+    else:
+        cell = _mixed_cells(fH=int(case.split("_")[1][2:]))
+    cell, depth, ctx, g = _bwd_case(cuda_device, cell, C, seed=len(case))
+    before = build.LAUNCHES["bev_pool_bwd"]
+    gd, gc = bev_pool.bev_pool_bwd_cuda(cell, depth, ctx, g, ncells)
+    assert build.LAUNCHES["bev_pool_bwd"] == before + 1
+    rd, rc = bev_pool.bev_pool_outer_bwd_plain(cell, depth, ctx, g, ncells)
+    torch.cuda.synchronize()
+    outside = (cell < 0) | (cell >= ncells)
+    assert (gd[outside] == 0).all()
+    torch.testing.assert_close(gd, rd, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(gc, rc, rtol=1e-5, atol=1e-5)
+    if case.startswith("mixed"):
+        gone = outside.all(2).all(2)  # [B, NC, fW]: columns with no point in the grid
+        assert gone[..., 0].all() and (gc.permute(0, 1, 3, 2, 4)[gone] == 0).all()
+
+
+@pytest.mark.cuda
+def test_bev_pool_backward_kernel_is_bit_identical_at_full_width(cuda_device):
+    """K5 at full width (B 4, six cameras, D 112, fH 16, fW 44, C 256) on
+    the nuScenes-like cameras: three reruns give the same bits, and both
+    gradients equal the float64 plain version at rtol/atol 1e-5."""
+    ncells = 180 * 180
+    cell, depth, ctx, g = _bwd_case(cuda_device, _nuscenes_cells(4, 16, 44), 256, seed=9)
+    gd, gc = bev_pool.bev_pool_bwd_cuda(cell, depth, ctx, g, ncells)
+    for _ in range(3):
+        gd2, gc2 = bev_pool.bev_pool_bwd_cuda(cell, depth, ctx, g, ncells)
+        assert torch.equal(gd2, gd) and torch.equal(gc2, gc)
+    rd, rc = _bwd_plain_f64(cell, depth, ctx, g, ncells)
+    torch.testing.assert_close(gd.double(), rd, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(gc.double(), rc, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -688,3 +806,45 @@ def test_fused_subm_on_the_card(cuda_device):
         ref = _subm_impl(x.feats, x.occ_bits, x.colkey, x.chunk, x.valid, x.weight, None, x.tables,
                          "bfloat16")
         torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=2e-2 * ref.float().abs().max().item())
+
+
+def _voxelize_args(cfg):
+    caps = cfg.caps
+    return (cfg.point_cloud_range, cfg.voxel_size, cfg.grid_size, caps.max_voxels_eval,
+            caps.max_points_per_voxel)
+
+
+@pytest.mark.cuda
+def test_voxelize_is_bit_identical_on_reruns(cuda_device):
+    """The voxeliser's mean VFE on four full-size 10-sweep clouds at the
+    eval cap: two calls on the card give the same bits."""
+    from unidistill_torch.configs.nuscenes import lidar_exp
+    from unidistill_torch.ops.voxelize import voxelize
+    from unidistill_torch.serving.synthetic import lidar_batch
+    cfg = lidar_exp().model
+    b = lidar_batch(cfg, 4, seed=11)
+    pts, mask = torch.from_numpy(b["points"]).to(cuda_device), torch.from_numpy(b["points_mask"]).to(cuda_device)
+    f1, c1 = voxelize(pts, mask, *_voxelize_args(cfg))
+    f2, c2 = voxelize(pts, mask, *_voxelize_args(cfg))
+    assert (c1[..., 0] >= 0).sum() > 200_000
+    assert torch.equal(c1, c2)
+    n_diff = int((f1 != f2).any(-1).sum().item())
+    assert n_diff == 0, f"{n_diff} voxel features differ between two runs"
+
+
+@pytest.mark.cuda
+def test_voxelize_on_the_card_equals_the_cpu(cuda_device):
+    """The tiny LiDAR model's voxels: the card sums each voxel's points in
+    the CPU's order, so coords and features are equal bit for bit."""
+    from unidistill_torch.configs.nuscenes import tiny_model
+    from unidistill_torch.ops.voxelize import voxelize
+    from unidistill_torch.serving.synthetic import lidar_batch
+    cfg = tiny_model(with_camera=False)
+    b = lidar_batch(cfg, 2, seed=13)
+    pts, mask = torch.from_numpy(b["points"]), torch.from_numpy(b["points_mask"])
+    fc, cc = voxelize(pts, mask, *_voxelize_args(cfg))
+    fg, cg = voxelize(pts.to(cuda_device), mask.to(cuda_device), *_voxelize_args(cfg))
+    assert (cc[..., 0] >= 0).sum() > 1000
+    assert torch.equal(cg.cpu(), cc)
+    n_diff = int((fg.cpu() != fc).any(-1).sum().item())
+    assert n_diff == 0, f"{n_diff} voxel features differ between the card and the CPU"

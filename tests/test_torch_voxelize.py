@@ -2,7 +2,8 @@
 
 The same numpy point clouds go through both. Voxel coords must be equal;
 the mean features agree to 1e-6 (rtol and atol: the same sums, which torch
-may add in another order than XLA).
+may add in another order than XLA). The port's per-rank sum equals one
+sequential `index_add_` of the kept points on the CPU bit for bit.
 """
 import numpy as np
 import pytest
@@ -78,3 +79,61 @@ def test_voxel_feature_is_the_mean_of_the_first_points():
     assert (coords[0, 0] >= 0).all() and (coords[0, 1:] == -1).all()
     assert feats[0, 0, 3].item() == pytest.approx(np.arange(10).mean())
     assert float(feats[0, 1:].abs().sum()) == 0.0
+
+
+def _voxelize_index_add(points, points_mask, point_cloud_range, voxel_size, grid_size, max_voxels,
+                        max_points_per_voxel):
+    """The voxeliser with its sums as one `index_add_` of the kept points
+    into their slots (the dropped ones into a dump slot V), which the CPU
+    adds in point order."""
+    B, P, C = points.shape
+    nx, ny, nz = grid_size
+    V = max_voxels
+    pcr = torch.tensor(point_cloud_range[:3], dtype=points.dtype)
+    vsz = torch.tensor(voxel_size, dtype=points.dtype)
+    vc = torch.floor((points[..., :3] - pcr) / vsz).clamp(-1, max(nx, ny, nz)).to(torch.int64)
+    x, y, z = vc.unbind(-1)
+    in_range = (x >= 0) & (x < nx) & (y >= 0) & (y < ny) & (z >= 0) & (z < nz) & points_mask
+    big = nx * ny * nz
+    skey, order = torch.sort(torch.where(in_range, (y * nx + x) * nz + z, big), dim=1, stable=True)
+    spoints = torch.gather(points, 1, order[..., None].expand(B, P, C))
+    svc = torch.gather(vc, 1, order[..., None].expand(B, P, 3))
+    live = skey < big
+    is_start = torch.ones_like(live)
+    is_start[:, 1:] = skey[:, 1:] != skey[:, :-1]
+    is_start &= live
+    seg = torch.where(live, (torch.cumsum(is_start.long(), 1) - 1).clamp(max=V), V)
+    pos = torch.arange(P).expand(B, P)
+    runstart = torch.cummax(torch.where(is_start, pos, 0), 1).values
+    keep = ((pos - runstart) < max_points_per_voxel) & (seg < V)
+    gseg = (seg + torch.arange(B)[:, None] * (V + 1)).reshape(-1)
+    sums = torch.zeros(B * (V + 1), C).index_add_(0, gseg, torch.where(keep[..., None], spoints, 0.0).reshape(-1, C))
+    cnts = torch.zeros(B * (V + 1), dtype=torch.int64).index_add_(0, gseg, keep.reshape(-1).long())
+    feats = sums.reshape(B, V + 1, C)[:, :V] / cnts.reshape(B, V + 1)[:, :V].clamp(min=1)[..., None]
+    gdest = (torch.where(is_start, seg, V) + torch.arange(B)[:, None] * (V + 1)).reshape(-1)
+    coords = torch.full((B * (V + 1), 3), -1, dtype=torch.int32)
+    coords.index_copy_(0, gdest, svc.flip(-1).reshape(-1, 3).to(torch.int32))
+    return feats, coords.reshape(B, V + 1, 3)[:, :V]
+
+
+@pytest.mark.parametrize("grid", ["tiny", "tiny_cap_binds", "nuscenes"])
+def test_per_rank_sum_equals_one_index_add(grid):
+    """The per-rank sums (no atomics) against one `index_add_` on the CPU,
+    bit for bit: at the tiny grid (room, and a cap that binds) and at the
+    full nuScenes grid on two full-size 10-sweep clouds at the eval cap."""
+    if grid == "nuscenes":
+        mc = lidar_exp().model
+        b = lidar_batch(mc, 2, seed=11)
+        pts, mask, V = b["points"], b["points_mask"], mc.caps.max_voxels_eval
+    else:
+        mc = tiny_model(with_camera=False)
+        pts, mask = cloud(2, mc.caps.max_points, 1500, seed=1)
+        V = 300 if grid == "tiny_cap_binds" else 2048
+    args = (mc.point_cloud_range, mc.voxel_size, mc.grid_size, V, mc.caps.max_points_per_voxel)
+    pts, mask = torch.from_numpy(pts), torch.from_numpy(mask)
+    feats, coords = voxelize(pts, mask, *args)
+    ref_f, ref_c = _voxelize_index_add(pts, mask, *args)
+    assert torch.equal(coords, ref_c)
+    assert torch.equal(feats.view(torch.int32), ref_f.view(torch.int32))
+    live = (coords[..., 0] >= 0).sum(1)
+    assert (live > (50_000 if grid == "nuscenes" else 250)).all()

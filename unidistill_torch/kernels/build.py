@@ -45,8 +45,10 @@ SIGNATURES = {
     "bev_pool": {
         # order, offsets, depth, ctx, out, n_rows, D, HW, C, stream
         "bev_pool_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-        # cell, depth, ctx, g, g_depth, g_ctx, n_rays, rays_per_batch, D, HW, C, ncells, stream
-        "bev_pool_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        # cell, depth, ctx, g, g_depth, g_ctx, B, NC, D, fH, fW, C, ncells, vec, stream
+        "bev_pool_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+        # columns, rays_per_pass (int*)
+        "bev_pool_bwd_schedule": (_P, _P),
     },
     "nms": {
         # boxes_a, boxes_b, out, L, M, N, stream

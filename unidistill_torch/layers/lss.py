@@ -124,15 +124,21 @@ class LSSFPN(nn.Module):
         depth = torch.softmax(dc[:, :D], dim=1).reshape(B, N, D, fH, fW)
         context = dc[:, D:].permute(0, 2, 3, 1).reshape(B, N, fH, fW, C)
 
-        geom = get_geometry(
-            self.frustum, mats["sensor2ego_mats"].float(), mats["intrin_mats"].float(),
-            mats["ida_mats"].float(),
-            mats["bda_mat"].float() if mats.get("bda_mat") is not None else None,
-        )
-        dev = geom.device
-        lower = torch.tensor([cfg.x_bound[0], cfg.y_bound[0], cfg.z_bound[0]], dtype=torch.float32, device=dev)
-        vsize = torch.tensor([cfg.x_bound[2], cfg.y_bound[2], cfg.z_bound[2]], dtype=torch.float32, device=dev)
-        geom_idx = ((geom - lower) / vsize).to(torch.int32)  # truncation toward zero
+        geom_idx = voxel_coords(cfg, self.frustum, mats)
         ny, nx = cfg.bev_hw
         bev = bev_pool_outer(geom_idx, depth, context.contiguous(), (nx, ny, 1))
         return bev.permute(0, 3, 1, 2)
+
+
+def voxel_coords(cfg: CameraEncoderConfig, frustum: torch.Tensor, mats: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The frustum points' BEV voxel coordinates [B, N, D, fH, fW, 3] int32
+    (x, y, z), for the camera matrices `mats` (as `LSSFPN.forward`)."""
+    geom = get_geometry(
+        frustum, mats["sensor2ego_mats"].float(), mats["intrin_mats"].float(),
+        mats["ida_mats"].float(),
+        mats["bda_mat"].float() if mats.get("bda_mat") is not None else None,
+    )
+    dev = geom.device
+    lower = torch.tensor([cfg.x_bound[0], cfg.y_bound[0], cfg.z_bound[0]], dtype=torch.float32, device=dev)
+    vsize = torch.tensor([cfg.x_bound[2], cfg.y_bound[2], cfg.z_bound[2]], dtype=torch.float32, device=dev)
+    return ((geom - lower) / vsize).to(torch.int32)  # truncation toward zero

@@ -23,10 +23,15 @@ K5 computes, for the gradient g [B, ncells, C] of the output,
   g_depth[p]    = <g[b, cell[p]], context[ray(p)]>     (0 outside the grid)
   g_context[r]  = sum of depth[p]·g[b, cell[p]] over the points p of ray r
 
-and `bev_pool_outer_bwd_plain` is its plain version.
+with one block per two neighbouring camera columns (b, n, w), whose rays
+share their cell at most depth bins, so that it reads each g row about once
+per column (`bev_pool_bwd_reads` counts the rows); no atomics,
+bit-identical from run to run. `bev_pool_outer_bwd_plain` is its plain version.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -180,12 +185,64 @@ def bev_pool_outer_bwd_plain(
     return g_depth, g_context
 
 
+K5_COLUMNS = 2          # neighbouring camera columns one K5 block walks (kCols)
+K5_RAYS_PER_PASS = 16   # rays of each column it walks at once (kRows)
+
+
+@functools.lru_cache(maxsize=None)
+def _check_k5_schedule(lib: ctypes.CDLL) -> None:
+    """The library's K5 schedule is the one `bev_pool_bwd_reads` models."""
+    columns, rays = ctypes.c_int(), ctypes.c_int()
+    build.check(lib.bev_pool_bwd_schedule(ctypes.byref(columns), ctypes.byref(rays)), "bev_pool_bwd_schedule")
+    if (columns.value, rays.value) != (K5_COLUMNS, K5_RAYS_PER_PASS):
+        raise RuntimeError(f"K5's schedule ({columns.value} columns, {rays.value} rays a pass) is not "
+                           f"the modelled one ({K5_COLUMNS}, {K5_RAYS_PER_PASS})")
+
+
+def bev_pool_bwd_reads(cell: torch.Tensor, ncells: int) -> Tuple[int, int]:
+    """The g rows K5 reads, before and after its redesign, as modelled from
+    its schedule (the kernel counts nothing). cell: [B, NC, D, fH, fW] int
+    flat cells (outside [0, ncells) = dropped). Returns
+
+      ray runs:     the ray-owned design's reads, one per in-grid point whose
+                    cell differs from the ray's previous in-grid cell;
+      column reads: the column-owned design's: a block walks K5_RAYS_PER_PASS
+                    rays of K5_COLUMNS neighbouring columns (b, n, w) at a
+                    time; at each depth bin where their cells (outside = -1)
+                    differ from the previous bin's, it reads one row per
+                    distinct in-grid cell among them."""
+    B, NC, D, fH, fW = cell.shape
+    q = torch.where((cell >= 0) & (cell < ncells), cell.long(), -1)
+    rays = q.permute(0, 1, 4, 3, 2).reshape(-1, fH, D)  # [columns, h, d]
+    inside = rays >= 0
+    d = torch.arange(D, device=q.device).expand_as(rays)
+    # the ray's last in-grid bin before d (-1 for none)
+    last = torch.cummax(torch.where(inside, d, -1), 2).values
+    prev = torch.cat([last.new_full(last.shape[:2] + (1,), -1), last[..., :-1]], 2)
+    prev_q = torch.gather(rays, 2, prev.clamp(min=0))
+    ray_runs = int((inside & ((prev < 0) | (prev_q != rays))).sum().item())
+
+    pad = -fW % K5_COLUMNS
+    cols = torch.nn.functional.pad(q, (0, pad), value=-1).permute(0, 1, 4, 3, 2)  # [B, NC, w, h, d]
+    cols = cols.reshape(-1, K5_COLUMNS, fH, D)  # [column groups, column, h, d]
+    column_reads = 0
+    for h0 in range(0, fH, K5_RAYS_PER_PASS):
+        qs = cols[:, :, h0:h0 + K5_RAYS_PER_PASS].flatten(1, 2).transpose(1, 2)  # [groups, d, rays]
+        changed = torch.ones(qs.shape[:2], dtype=torch.bool, device=q.device)
+        changed[:, 1:] = (qs[:, 1:] != qs[:, :-1]).any(-1)
+        s = qs.sort(-1).values
+        distinct = (s >= 0) & torch.cat([torch.ones_like(s[..., :1], dtype=torch.bool), s[..., 1:] != s[..., :-1]], -1)
+        column_reads += int((distinct.sum(-1) * changed).sum().item())
+    return ray_runs, column_reads
+
+
 def bev_pool_bwd_cuda(
     cell: torch.Tensor, depth: torch.Tensor, context: torch.Tensor, g: torch.Tensor, ncells: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel K5. cell, depth, context as `bev_pool_cells_cuda`; g [B, ncells,
-    C] f32, the gradient of its output. Returns (g_depth [B, NC, D, fH, fW],
-    g_context [B, NC, fH, fW, C]), f32."""
+    """Kernel K5, one block per two camera columns. cell, depth, context as
+    `bev_pool_cells_cuda`; g [B, ncells, C] f32, the gradient of its output.
+    Returns (g_depth [B, NC, D, fH, fW], g_context [B, NC, fH, fW, C]), f32,
+    bit-identical from run to run."""
     B, NC, D, fH, fW = depth.shape
     C = context.shape[-1]
     _check_pool_args(cell, depth, context)
@@ -193,13 +250,17 @@ def bev_pool_bwd_cuda(
         raise ValueError("bev_pool_bwd: g must be a contiguous float32 CUDA tensor")
     if tuple(g.shape) != (B, ncells, C):
         raise ValueError(f"bev_pool_bwd: g {tuple(g.shape)} != {(B, ncells, C)}")
+    if B * ncells >= 2**31:
+        raise ValueError("bev_pool_bwd: too many g rows for int32 indexing")
     g_depth = torch.empty_like(depth)
     g_context = torch.empty_like(context)
+    # float4 loads and 16-byte row copies where the rows allow them
+    vec = 4 if C % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (context, g, g_context)) else 1
     lib = build.library("bev_pool")
+    _check_k5_schedule(lib)
     err = lib.bev_pool_bwd(
         cell.data_ptr(), depth.data_ptr(), context.data_ptr(), g.data_ptr(),
-        g_depth.data_ptr(), g_context.data_ptr(),
-        B * NC * fH * fW, NC * fH * fW, D, fH * fW, C, ncells,
+        g_depth.data_ptr(), g_context.data_ptr(), B, NC, D, fH, fW, C, ncells, vec,
         torch.cuda.current_stream(depth.device).cuda_stream,
     )
     build.check(err, "bev_pool_bwd")

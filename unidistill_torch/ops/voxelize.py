@@ -17,8 +17,9 @@ its layouts and semantics:
     package's documented deviation from spconv's first-occurrence order);
   * unused slots have coords -1 and features 0.
 
-Plain PyTorch: sort, cumulative max and `index_add_` have no TPU kernel
-behind them in the JAX package (they are XLA there).
+Plain PyTorch: the sort, scan and gathers have no TPU kernel behind them in
+the JAX package (they are XLA there). No sum uses atomics, so the result is
+the same from run to run on the card and equals the CPU's bit for bit.
 """
 from __future__ import annotations
 
@@ -62,23 +63,26 @@ def voxelize(
     seg = torch.cumsum(is_start.to(torch.int64), 1) - 1
     seg = torch.where(live, seg.clamp(max=V), torch.full_like(seg, V))
 
-    pos = torch.arange(P, device=dev).expand(B, P)
-    runstart = torch.cummax(torch.where(is_start, pos, torch.zeros_like(pos)), 1).values
-    keep = ((pos - runstart) < max_points_per_voxel) & (seg < V)
+    # seg ascends along each row, so slot v's points are the interval
+    # [bounds[v], bounds[v + 1]) and it keeps the first max_points_per_voxel
+    slots = torch.arange(V + 1, device=dev).expand(B, V + 1).contiguous()
+    bounds = torch.searchsorted(seg, slots)
+    start = bounds[:, :V]
+    cnts = (bounds[:, 1:] - start).clamp(max=max_points_per_voxel)
 
-    boff = torch.arange(B, device=dev)[:, None] * (V + 1)
-    gseg = (seg + boff).reshape(-1)
-    sums = torch.zeros(B * (V + 1), C, dtype=points.dtype, device=dev)
-    sums.index_add_(0, gseg, torch.where(keep[..., None], spoints, 0.0).reshape(-1, C))
-    cnts = torch.zeros(B * (V + 1), dtype=torch.int64, device=dev)
-    cnts.index_add_(0, gseg, keep.reshape(-1).to(torch.int64))
-    sums = sums.reshape(B, V + 1, C)[:, :V]
-    cnts = cnts.reshape(B, V + 1)[:, :V]
+    # each slot sums its kept points in point order, ((0 + p0) + p1) + ...,
+    # one gather and one add per rank: no atomics, so the card gives the
+    # same bits from run to run and as the CPU's sequential sum; ranks past
+    # a slot's count read the zero row P
+    src = torch.cat([spoints, spoints.new_zeros(B, 1, C)], 1)
+    ranks = torch.arange(max_points_per_voxel, device=dev)
+    rows = torch.where(ranks < cnts[..., None], start[..., None] + ranks, P)
+    sums = torch.zeros(B, V, C, dtype=points.dtype, device=dev)
+    for r in range(max_points_per_voxel):
+        sums += torch.gather(src, 1, rows[..., r, None].expand(B, V, C))
     feats = sums / cnts.clamp(min=1)[..., None].to(sums.dtype)
 
-    # the first point of each kept voxel writes its slot's coords; the rest
-    # go to the dump slot V (in any order: it is cut off)
-    gdest = (torch.where(is_start, seg, torch.full_like(seg, V)) + boff).reshape(-1)
-    coords = torch.full((B * (V + 1), 3), -1, dtype=torch.int32, device=dev)
-    coords.index_copy_(0, gdest, svc.flip(-1).reshape(-1, 3).to(torch.int32))
-    return feats, coords.reshape(B, V + 1, 3)[:, :V]
+    # a slot's coords are those of its first point; unused slots get -1
+    first = torch.gather(svc, 1, start.clamp(max=P - 1)[..., None].expand(B, V, 3))
+    coords = torch.where(cnts[..., None] > 0, first.flip(-1).to(torch.int32), -1)
+    return feats, coords

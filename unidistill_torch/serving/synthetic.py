@@ -12,6 +12,11 @@ BEV map, where bf16 rounding hides every difference under test).
 matrices: six cameras around the ego car 1.6 m up, 1266 px focal length on
 the 1600×900 sensor, the image resized by 0.44 and cropped 140 rows (the IDA
 of the eval pipeline), identity BDA, normalised random images.
+`nuscenes_cells(cfg, B, seed)` are the flat BEV cells of the frustum points
+under those cameras, as the camera encoder computes them; with a
+`DataConfig`, under the training image augmentation (`train_ida_mats`:
+random resize, crop, flip and rotation, drawn as the data pipeline draws
+them), and with `pitch_deg`, under cameras tilted down by that angle.
 `rich_mats(B, N, H, W)` are the small-image matrices of the JAX package's
 full-model golden test, chosen so that frustum points land well inside BEV
 cells (cell truncation is bitwise-sensitive at the edges).
@@ -22,15 +27,17 @@ GT boxes of the clouds' scenes.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from unidistill_torch.configs.nuscenes import CLASS_TO_IDX, ModelConfig
+from unidistill_torch.configs.nuscenes import CLASS_TO_IDX, DataConfig, ModelConfig
 from unidistill_torch.layers.lidar_encoder import SubMConv
+from unidistill_torch.layers.lss import make_frustum, voxel_coords
 from unidistill_torch.models.bevfusion import BEVFusionCenterHead
+from unidistill_torch.ops.bev_pool import _linear_index
 
 BatchNorm = nn.modules.batchnorm._BatchNorm
 
@@ -120,6 +127,53 @@ def nuscenes_batch(cfg: ModelConfig, B: int, seed: int) -> Dict:
     bda = np.broadcast_to(np.eye(4, dtype=np.float32), (B, 4, 4)).copy()
     return dict(imgs=_images(cfg, B, rng),
                 mats=dict(sensor2ego_mats=s2e, intrin_mats=intrin, ida_mats=ida, bda_mat=bda))
+
+
+def train_ida_mats(data: DataConfig, final_dim: Tuple[int, int], n: int,
+                   rng: np.random.RandomState) -> np.ndarray:
+    """IDA matrices [n, 4, 4] of the training image augmentation: for each
+    image, a random resize, crop, horizontal flip and rotation within
+    `data`'s limits, drawn in the data pipeline's order and composed as its
+    pixel-space affine (scale, crop shift, mirror in the crop box, rotation
+    about the crop's centre)."""
+    H, W = data.src_h, data.src_w
+    fH, fW = final_dim
+    out = np.broadcast_to(np.eye(4), (n, 4, 4)).copy()
+    for i in range(n):
+        resize = rng.uniform(*data.ida_resize_lim)
+        new_w, new_h = int(W * resize), int(H * resize)
+        crop_h = int((1 - rng.uniform(*data.ida_bot_pct_lim)) * new_h) - fH
+        crop_w = int(rng.uniform(0, max(0, new_w - fW)))
+        flip = bool(data.ida_rand_flip and rng.choice([0, 1]))
+        ang = np.deg2rad(rng.uniform(*data.ida_rot_lim))
+        A, t = np.eye(2) * resize, -np.array([crop_w, crop_h], np.float64)
+        if flip:
+            A, t = np.diag([-1.0, 1.0]) @ A, np.array([fW - t[0], t[1]])
+        R = np.array([[np.cos(ang), np.sin(ang)], [-np.sin(ang), np.cos(ang)]])
+        ctr = np.array([fW, fH]) / 2.0
+        out[i, :2, :2], out[i, :2, 3] = R @ A, R @ t + ctr - R @ ctr
+    return out
+
+
+def nuscenes_cells(cfg: ModelConfig, B: int, seed: int, data: Optional[DataConfig] = None,
+                   pitch_deg: float = 0.0) -> torch.Tensor:
+    """Flat BEV cells [B, N, D, fH, fW] int32 (nx·ny outside the grid) of the
+    frustum points under `nuscenes_batch`'s cameras, on the CPU; under the
+    training image augmentation of `data` (drawn from `seed`) if given, and
+    with every camera tilted down by `pitch_deg`."""
+    ce = cfg.camera_encoder
+    mats = nuscenes_batch(cfg, B, seed)["mats"]
+    if data is not None:
+        rng = np.random.RandomState(seed)
+        mats["ida_mats"] = train_ida_mats(data, ce.final_dim, B * ce.num_cams, rng).reshape(
+            B, ce.num_cams, 4, 4).astype(np.float32)
+    if pitch_deg:
+        a = np.deg2rad(pitch_deg)  # about the camera's x axis (right): its z axis (forward) turns down
+        tilt = np.array([[1, 0, 0], [0, np.cos(a), np.sin(a)], [0, -np.sin(a), np.cos(a)]], np.float32)
+        mats["sensor2ego_mats"][..., :3, :3] = mats["sensor2ego_mats"][..., :3, :3] @ tilt
+    mats = {k: torch.from_numpy(v) for k, v in mats.items()}
+    ny, nx = ce.bev_hw
+    return _linear_index(voxel_coords(ce, torch.from_numpy(make_frustum(ce)), mats), nx, ny, 1).int()
 
 
 def rich_mats(B: int, N: int, H: int, W: int) -> Dict[str, np.ndarray]:
