@@ -24,13 +24,22 @@ Phases, each printed on its own line:
            error against the stated tolerance, kernel / plain / library ms;
            K1 (the plan and its reduce) must give bit-identical results on
            two runs, and prints the plan's and the reduce's ms and the
-           plan's (cell, ray) runs, occupied cells and longest interval
+           plan's (cell, ray) runs, occupied cells and longest interval;
+           K2 (mask mode) and K3 on the recorded camera lanes, then on
+           `synthetic.nms_lanes` "clustered" (40 cars x 12 candidates a
+           lane) and "coincident" (every pair clipped): K2's words equal the
+           plain mask outside K2_THR_BAND, K3's keep sets equal, reruns
+           bit-identical; valid rows, upper pairs, pairs clipped (modelled
+           by the plain filter), bits set, rows walked and kept, ms, bounds
+           (K2's over the clipped pairs and over every upper pair; K3's
+           bytes and its serial chain)
   heads    one request's head tensors, kernels vs plain versions, in bf16
            and in f32; rois: the ROIs from the same heads, K2/K3 vs plain
   tiny     a small float32 camera detector on the card vs the same on the CPU
   lidar predict   as predict, for the LiDAR detector; also points, voxels
            and sites per stage beside the JAX package's fixed-shape caps;
-           K4 must launch 21 times a request, K2 and K3 once
+           K4 must launch 21 times a request, K2 and K3 once; then K2 and K3
+           on the recorded LiDAR lanes, as for the camera
   K4       each of the 21 recorded sparse convs of one request, K4 vs its
            plain version: max error, kernel / plain / library (one
            `torch.mm` of a prebuilt im2col) / bound ms; the bf16 kernel's
@@ -125,12 +134,15 @@ BF16_OPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 # float operations per rotated-IoU pair, counted from csrc/nms.cu: 8 edge
 # clips x (4 planes x 14 + 13 tail) + 6 for the IoU
 IOU_OPS_PER_PAIR = 8 * (4 * 14 + 13) + 6
+# K3's serial chain: one dependent shared-memory round trip a row walked,
+# taken as 30 SM cycles (an assumption, not measured here) at the card's
+# maximum SM clock (nvidia-smi)
+SMEM_ROUND_TRIP_CYCLES = 30
 # tolerances, with their reasons
 # K1 sums (sum of a ray's depths) x context per (cell, ray) run in a fixed
 # order; its plain version sums depth x context with index_add_'s atomics
 K1_TOL = dict(rtol=1e-4, atol=1e-4)
 K2_TOL = dict(rtol=1e-4, atol=1e-5)  # same float math; libm cos/sin may differ by an ulp
-K2_THR_BAND = 1e-5                   # mask bits may differ only where |iou - thr| < band
 # heads, kernels vs plain, as max |diff| over max |ref|: in f32 the pool's
 # summation order only; in bf16 that round-off flips bf16 roundings (2^-8)
 # which spread through the convolutions after the pool (3e-2 seen on the H100)
@@ -193,6 +205,14 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def sm_clock_hz():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
 def cuda_ms(fn, iters=10, warmup=2):
     """Mean device time of fn() over `iters` launches, by CUDA events."""
     for _ in range(warmup):
@@ -206,6 +226,25 @@ def cuda_ms(fn, iters=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, name, iters=50):
+    """Device time a call of fn spends in kernels whose name holds `name`,
+    from torch.profiler's CUDA activity: for a kernel shorter than its
+    wrapper's host work, back-to-back CUDA events time the host. None if
+    the profiler recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # one profile in a dozen came back without the kernel's activity on the H100
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "device_time_total", 0.0) for e in prof.key_averages() if name in e.key)
+        if us > 0:
+            return us / iters / 1e3
+    return None
 
 
 class Recorder:
@@ -386,6 +425,72 @@ def card_vs_cpu(phase, tcfg, hg, hc):
         tol=TINY_REL_TOL, rois_from_same_heads="equal", kept=rc["mask"].sum(1).tolist())
 
 
+def nms_checks(label, bev, v, thr, post):
+    """K2 (mask mode) and K3 on one set of lanes against their plain
+    versions: K2's words bit for bit outside K2_THR_BAND of thr, K3's keep
+    sets equal, each bit-identical on a rerun. Prints the pairs K2 clips
+    (modelled by the plain filter, `pairs_to_clip_plain`), the bits set,
+    the rows K3 walks and keeps, each kernel's ms (its device time from
+    torch.profiler; `events_ms` the mean of back-to-back launches by CUDA
+    events, host work included) and bound, and K2's bound if every upper
+    pair were clipped. Returns the two kernels' table fields."""
+    from unidistill_torch.ops import nms
+    L, C = v.shape
+    words = nms.rotated_iou_mask_cuda(bev, v, thr)
+    again = nms.rotated_iou_mask_cuda(bev, v, thr)
+    iou_p = nms.rotated_iou_bev_plain(bev, bev)
+    over_p = nms.iou_over_plain(bev, v, thr)
+    diff = nms.unpack_mask_bits(words) ^ over_p
+    n_diff = int(diff.sum().item())
+    if not torch.equal(words, again):
+        raise RuntimeError(f"K2 {label}: two runs on the same inputs are not bit-identical")
+    if n_diff and not ((iou_p - thr).abs()[diff] < nms.K2_THR_BAND).all():
+        raise RuntimeError(f"K2 {label}: mask differs from the plain version at {n_diff} bits off the threshold band")
+    del iou_p, diff
+    tri = torch.ones(C, C, dtype=torch.bool, device=v.device).triu(1)
+    upper = int((tri[None] & v[:, None, :]).sum().item())
+    clipped = int(nms.pairs_to_clip_plain(bev, v, thr).sum().item())
+    events_ms = cuda_ms(lambda: nms.rotated_iou_mask_cuda(bev, v, thr), iters=50)
+    ms = kernel_ms(lambda: nms.rotated_iou_mask_cuda(bev, v, thr), "iou_mask_kernel") or events_ms
+    plain_ms = cuda_ms(lambda: nms.pack_mask_bits(nms.iou_over_plain(bev, v, thr)), iters=3)
+    io_s = (bev.numel() * 4 + v.numel() + words.numel() * 8) / HBM_BYTES_PER_S
+    ops_s = clipped * IOU_OPS_PER_PAIR / F32_OPS_PER_S
+    bound, bound_all = max(io_s, ops_s) * 1e3, max(io_s, L * C * (C - 1) // 2 * IOU_OPS_PER_PAIR / F32_OPS_PER_S) * 1e3
+    log(f"K2 rotated_iou_mask {label}", lanes=L, C=C, valid_rows=int(v.sum().item()), upper_pairs=upper,
+        pairs_clipped_modelled=clipped, bits_set=int(over_p.sum().item()), differing_bits=n_diff,
+        band=nms.K2_THR_BAND, bit_identical="true", ms=f"{ms:.5f}", events_ms=f"{events_ms:.5f}",
+        plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{bound:.5f}", bound_all_pairs_ms=f"{bound_all:.5f}")
+    k2 = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="operations" if ops_s >= io_s else "bytes")
+
+    idx_k, keep_k = nms.nms_greedy_select_cuda(words, v, post)
+    idx_2, keep_2 = nms.nms_greedy_select_cuda(words, v, post)
+    unpacked = nms.unpack_mask_bits(words)
+    idx_p, keep_p = nms.greedy_select_plain(unpacked, v, post)
+    if not (torch.equal(idx_k, idx_p) and torch.equal(keep_k, keep_p)):
+        raise RuntimeError(f"K3 {label}: keep sets differ from the plain serial greedy")
+    if not (torch.equal(idx_k, idx_2) and torch.equal(keep_k, keep_2)):
+        raise RuntimeError(f"K3 {label}: two runs on the same inputs are not bit-identical")
+    events_ms = cuda_ms(lambda: nms.nms_greedy_select_cuda(words, v, post), iters=50)
+    ms = kernel_ms(lambda: nms.nms_greedy_select_cuda(words, v, post), "greedy_kernel") or events_ms
+    plain_ms = cuda_ms(lambda: nms.greedy_select_plain(unpacked, v, post), iters=3)
+    kept = keep_p.sum(1)
+    # the greedy walks a lane's rows up to its post-th kept row (all C if fewer)
+    walked = torch.where(kept == post, idx_p[:, -1].long() + 1, torch.full_like(kept, C))
+    kept_rows = idx_p.long()[keep_p]
+    k3_bytes = int(((C // 64 - kept_rows // 64) * 8).sum().item()) + v.numel() + idx_k.numel() * 5
+    io_s = k3_bytes / HBM_BYTES_PER_S
+    chain_s = int(walked.max().item()) * SMEM_ROUND_TRIP_CYCLES / sm_clock_hz()
+    bound = max(io_s, chain_s) * 1e3
+    log(f"K3 nms_greedy_select {label}", lanes=L, rows_walked_max=int(walked.max().item()),
+        rows_walked_total=int(walked.sum().item()), kept_total=int(kept.sum().item()),
+        kept_min=int(kept.min().item()), equal=True, bit_identical="true", ms=f"{ms:.5f}",
+        events_ms=f"{events_ms:.5f}", plain_ms=f"{plain_ms:.4f}", bytes_ms=f"{io_s * 1e3:.6f}", chain_floor_ms=f"{chain_s * 1e3:.6f}",
+        bound_ms=f"{bound:.6f}")
+    k3 = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="operations" if chain_s >= io_s else "bytes")
+    return k2, k3
+
+
 def camera_phases(dev, table) -> None:
     """The camera detector's path: predict, K1-K3, heads, rois, tiny."""
     from unidistill_torch.configs.nuscenes import camera_exp, tiny_model
@@ -395,7 +500,7 @@ def camera_phases(dev, table) -> None:
     from unidistill_torch.ops import bev_pool, nms
     from unidistill_torch.serving.predictor import Detector
     from unidistill_torch.serving.synthetic import (
-        calibrate_batchnorm, nuscenes_batch, random_state_dict, small_batch)
+        calibrate_batchnorm, nms_lanes, nuscenes_batch, random_state_dict, small_batch)
     from unidistill_torch.training.steps import model_inputs
 
     # ---- full-width predict ------------------------------------------------
@@ -457,47 +562,23 @@ def camera_phases(dev, table) -> None:
 
     # ---- K2 / K3 -------------------------------------------------------------
     (boxes, valid, thr, post), kw = nms_rec.calls[0]
-    cap = kw.get("cap", 512)
-    bev, v = nms._candidate_lanes(boxes, valid, post, cap)
-    L, Cn = v.shape
+    bev, v = nms._candidate_lanes(boxes, valid, post, kw.get("cap", 512))
     iou_k = nms.rotated_iou_cuda(bev, bev)
     iou_p = nms.rotated_iou_bev_plain(bev, bev)
     iou_abs, iou_rel = max_err(iou_k, iou_p)
     torch.testing.assert_close(iou_k, iou_p, **K2_TOL)
-    log("K2 rotated_iou float mode", lanes=L, C=Cn, max_abs_err=f"{iou_abs:.3e}", max_rel_err=f"{iou_rel:.3e}", tol=K2_TOL,
-        ms=f"{cuda_ms(lambda: nms.rotated_iou_cuda(bev, bev)):.4f}")
-    words = nms.rotated_iou_mask_cuda(bev, v, thr)
-    over_p = nms.iou_over_plain(bev, v, thr)
-    diff = nms.unpack_mask_bits(words) ^ over_p
-    n_diff = int(diff.sum().item())
-    if n_diff and not ((iou_p - thr).abs()[diff] < K2_THR_BAND).all():
-        raise RuntimeError(f"K2 mask differs from the plain version at {n_diff} bits off the threshold band")
-    ms = cuda_ms(lambda: nms.rotated_iou_mask_cuda(bev, v, thr))
-    plain_ms = cuda_ms(lambda: nms.pack_mask_bits(nms.iou_over_plain(bev, v, thr)), iters=3)
-    pairs = L * Cn * (Cn - 1) // 2
-    bound = max(pairs * IOU_OPS_PER_PAIR / F32_OPS_PER_S,
-                (bev.numel() * 4 + v.numel() + words.numel() * 8) / HBM_BYTES_PER_S) * 1e3
-    log("K2 rotated_iou_mask", lanes=L, C=Cn, valid_rows=int(v.sum().item()), bits_set=int(over_p.sum().item()),
-        differing_bits=n_diff, band=K2_THR_BAND, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-        bound_ms=f"{bound:.4f}")
+    log("K2 rotated_iou float mode", lanes=v.shape[0], C=v.shape[1], max_abs_err=f"{iou_abs:.3e}",
+        max_rel_err=f"{iou_rel:.3e}", tol=K2_TOL, ms=f"{cuda_ms(lambda: nms.rotated_iou_cuda(bev, bev)):.4f}")
+    k2, k3 = nms_checks("camera", bev, v, thr, post)
     table.append(dict(name="rotated_iou_mask", route="cuda", source="unidistill_torch/csrc/nms.cu",
                       replaces="unidistill_tpu/ops/nms.py:348", launches=launches["rotated_iou_mask"],
-                      max_abs_err=iou_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                      bound_by="operations", library_ms=None))
-    idx_k, keep_k = nms.nms_greedy_select_cuda(words, v, post)
-    idx_p, keep_p = nms.greedy_select_plain(nms.unpack_mask_bits(words), v, post)
-    if not (torch.equal(idx_k, idx_p) and torch.equal(keep_k, keep_p)):
-        raise RuntimeError("K3 keep sets differ from the plain serial greedy")
-    ms = cuda_ms(lambda: nms.nms_greedy_select_cuda(words, v, post))
-    unpacked = nms.unpack_mask_bits(words)
-    plain_ms = cuda_ms(lambda: nms.greedy_select_plain(unpacked, v, post), iters=3)
-    bound = (words.numel() * 8 + v.numel() + idx_k.numel() * 5) / HBM_BYTES_PER_S * 1e3
-    log("K3 nms_greedy_select", lanes=L, kept=keep_k.sum(1).tolist(), equal=True,
-        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound:.6f}")
+                      max_abs_err=iou_abs, library_ms=None, **k2))
     table.append(dict(name="nms_greedy_select", route="cuda", source="unidistill_torch/csrc/nms.cu",
                       replaces="unidistill_tpu/ops/nms.py:366", launches=launches["nms_greedy_select"],
-                      max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                      bound_by="bytes", library_ms=None))
+                      max_abs_err=0.0, library_ms=None, **k3))
+    for kind in ("clustered", "coincident"):
+        lanes, ok = nms_lanes(kind, seed=0)
+        nms_checks(kind, torch.from_numpy(lanes).to(dev), torch.from_numpy(ok).to(dev), thr, post)
 
     # ---- heads and ROIs: kernels vs plain versions on the card ---------------
     # in bf16 the pool's f32 round-off flips bf16 roundings, and the flips
@@ -524,9 +605,10 @@ def lidar_phases(dev, table) -> None:
     """The LiDAR detector's path: predict, sites per stage, K4, heads, rois,
     tiny."""
     from unidistill_torch.configs.nuscenes import lidar_exp, tiny_model
+    from unidistill_torch.decode import proposals
     from unidistill_torch.kernels import build
     from unidistill_torch.layers import lidar_encoder
-    from unidistill_torch.ops import sparse_conv
+    from unidistill_torch.ops import nms, sparse_conv
     from unidistill_torch.serving.predictor import Detector
     from unidistill_torch.serving.synthetic import calibrate_batchnorm, lidar_batch, random_state_dict
     from unidistill_torch.training.steps import model_inputs
@@ -541,11 +623,14 @@ def lidar_phases(dev, table) -> None:
     calibrate_batchnorm(det.model, model_inputs(batch_dev, cfg, dev, training=False))
     conv_rec = Recorder(lidar_encoder, "sparse_conv")
     rb_rec = Recorder(lidar_encoder, "build_rulebooks")
+    nms_rec = Recorder(proposals, "nms_bev_batched")
     log("lidar cloud", points=batch["points_mask"].sum(1).tolist(), seconds=f"{cloud_s:.2f}")
-    serve("lidar predict", det, cfg, batch_dev, [conv_rec, rb_rec],
+    serve("lidar predict", det, cfg, batch_dev, [conv_rec, rb_rec, nms_rec],
           dict(sparse_conv_fwd=SPARSE_CONVS_PER_REQUEST * TIMED_REQUESTS,
                rotated_iou_mask=TIMED_REQUESTS, nms_greedy_select=TIMED_REQUESTS))
     launches = dict(build.LAUNCHES)
+    (boxes, valid, thr, post), kw = nms_rec.calls[0]
+    nms_checks("lidar", *nms._candidate_lanes(boxes, valid, post, kw.get("cap", 512)), thr, post)
 
     # ---- voxels and sites per stage, beside the JAX package's caps -----------
     rb = rb_rec.results[0]

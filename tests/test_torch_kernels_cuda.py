@@ -21,7 +21,12 @@ rtol 1e-5 (the forward is bilinear, so the differences are exact up to
 float64 round-off; the kernels sum in float32); K2
 float mode rtol 1e-4, atol 1e-5 (same float math, libm cos/sin may differ
 by an ulp); K2 mask bits and K3 keep sets exactly (no IoU within 1e-4 of
-the threshold in these inputs); K4 in float32 rtol/atol 1e-4 (up to 27·128
+the threshold in these inputs); K2's mask on the layouts of
+`synthetic.nms_lanes` bit for bit where the IoU lies outside `K2_THR_BAND`
+of the threshold (and exactly where no IoU comes within 1e-4 of it), zero
+below the diagonal, bit-identical on a rerun; K3 equal to the plain greedy
+on random, empty, row-0-suppresses-all and all-invalid masks at C 64 to 4096
+(above 32 words a row) and post 1, 100 and C, bit-identical on a rerun; K4 in float32 rtol/atol 1e-4 (up to 27·128
 products summed in another order), in bfloat16 rtol 1e-2 (kernel and plain
 version both sum in f32 and round once; the other order may flip that
 rounding by one bf16 ulp, at most 2^-7 of the value; the bf16 instance
@@ -49,6 +54,7 @@ import torch
 
 from unidistill_torch.layers.lidar_encoder import DOWN_CONVS
 from unidistill_torch.ops import band_gather, bev_pool, fused_offsets, nms, sparse_conv
+from unidistill_torch.serving.synthetic import nms_lanes
 
 THR = 0.2
 
@@ -366,6 +372,94 @@ def test_nms_kernels_match_plain(cuda_device):
     bidx, bmask = nms.nms_bev_batched(boxes, valid, THR, 40)
     pidx, pmask = nms.nms_bev_batched_plain(boxes, valid, THR, 40)
     assert torch.equal(bidx, pidx) and torch.equal(bmask, pmask)
+
+
+def _k2_lanes(device, layout, L, C, seed=0):
+    bev, valid = nms_lanes(layout, seed, L=L, C=C, objects=max(1, C // 16), per_object=12)
+    valid[:, -3:] = False
+    return torch.from_numpy(bev).to(device), torch.from_numpy(valid).to(device)
+
+
+def _check_k2_words(words, bev, valid, thr):
+    """K2's words against the plain mask: equal bit for bit outside the band
+    (and exactly where no IoU comes within 1e-4 of thr), zero below the
+    diagonal, and equal on a rerun."""
+    L, C = valid.shape
+    iou = nms.rotated_iou_bev_plain(bev, bev)
+    over = nms.iou_over_plain(bev, valid, thr)
+    diff = nms.unpack_mask_bits(words) ^ over
+    assert ((iou - thr).abs()[diff] < nms.K2_THR_BAND).all(), int(diff.sum())
+    if ((iou - thr).abs() > 1e-4).all():
+        assert torch.equal(words, nms.pack_mask_bits(over))
+    below = torch.arange(C // 64, device=words.device)[None, :] < (torch.arange(C, device=words.device) // 64)[:, None]
+    assert not words[:, below].any()
+    assert torch.equal(words, nms.rotated_iou_mask_cuda(bev, valid, thr))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thr", [-0.1, 0.0, 0.1, 0.8])
+@pytest.mark.parametrize("L,C", [(1, 64), (24, 64), (1, 128), (24, 128), (1, 512), (24, 512), (1, 1024), (24, 1024)])
+@pytest.mark.parametrize("layout", ["spread", "clustered", "coincident", "touching", "mixed_sizes", "tiny"])
+def test_iou_mask_kernel_matches_plain(cuda_device, layout, L, C, thr):
+    bev, valid = _k2_lanes(cuda_device, layout, L, C)
+    _check_k2_words(nms.rotated_iou_mask_cuda(bev, valid, thr), bev, valid, thr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thr", [0.0, 0.1])
+def test_iou_mask_kernel_on_boxes_the_filter_cannot_bound(cuda_device, thr):
+    """Boxes 6 km out, with a 0.1 mm side 60 m out, zero dims or NaN: the
+    filter clips every pair of theirs."""
+    cx = torch.tensor([0.0, 6000.0, 6001.0, 60.0, 61.0, 0.5, float("nan"), 0.4])
+    bev = torch.stack([cx, torch.tensor([0.0, 0.0, 0.5, 1.0, 1.0, 0.0, 0.0, 0.2]),
+                       torch.tensor([2.0, 4.0, 4.0, 1e-4, 2.0, 0.0, 2.0, 2.0]),
+                       torch.tensor([2.0, 2.0, 2.0, 3.0, 2.0, 0.0, 2.0, 2.0]),
+                       torch.tensor([0.3, 0.0, 0.1, 0.2, 0.0, 0.0, 0.0, 0.1])], 1)
+    bev = torch.cat([bev, bev[:1] + torch.arange(1.0, 57.0)[:, None] * torch.tensor([3.0, 0, 0, 0, 0])])
+    bev, valid = bev[None].contiguous().to(cuda_device), torch.ones(1, 64, dtype=torch.bool, device=cuda_device)
+    _check_k2_words(nms.rotated_iou_mask_cuda(bev, valid, thr), bev, valid, thr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thr", [-0.1, 0.1])
+def test_iou_mask_kernel_with_every_row_invalid(cuda_device, thr):
+    bev, valid = _k2_lanes(cuda_device, "coincident", 3, 256)
+    valid[:] = False
+    words = nms.rotated_iou_mask_cuda(bev, valid, thr)
+    assert not words.any()
+    _check_k2_words(words, bev, valid, thr)
+
+
+def _k3_mask(kind, L, C, seed=0):
+    """An upper-triangular suppression mask [L, C, C] and valid [L, C]."""
+    g = torch.Generator().manual_seed(seed)
+    valid = torch.rand(L, C, generator=g) < 0.9
+    over = (torch.rand(L, C, C, generator=g) < 4.0 / C) & torch.ones(C, C, dtype=torch.bool).triu(1)
+    if kind == "nothing_suppressed":
+        over[:] = False
+    elif kind == "row0_suppresses_all":
+        over[:] = False
+        over[:, 0, 1:] = True
+        valid[:, 0] = True
+    elif kind == "all_invalid":
+        valid[:] = False
+    return over & valid[:, None, :], valid  # K2 sets no bit for an invalid column
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("post", [1, 100, "C"])
+@pytest.mark.parametrize("kind", ["random", "nothing_suppressed", "row0_suppresses_all", "all_invalid"])
+@pytest.mark.parametrize("L,C", [(1, 64), (1, 128), (24, 512), (3, 2112), (2, 4096)])
+def test_greedy_kernel_matches_plain(cuda_device, L, C, kind, post):
+    post = C if post == "C" else min(post, C)
+    over, valid = _k3_mask(kind, L, C)
+    over, valid = over.to(cuda_device), valid.to(cuda_device)
+    words = nms.pack_mask_bits(over)
+    idx, keep = nms.nms_greedy_select_cuda(words, valid, post)
+    ref_idx, ref_keep = nms.greedy_select_plain(over, valid, post)
+    assert torch.equal(idx, ref_idx) and torch.equal(keep, ref_keep)
+    idx2, keep2 = nms.nms_greedy_select_cuda(words, valid, post)
+    assert torch.equal(idx, idx2) and torch.equal(keep, keep2)
 
 
 def _sparse_inputs(device, dtype, n_in, n_out, K, cin, cout, seed, missing=0.6):

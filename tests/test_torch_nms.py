@@ -10,6 +10,13 @@ holds the Pallas tile against XLA.
 NMS: keep indices must be equal to JAX `nms_bev_batched` and `nms_bev`.
 Every case is checked to keep all pairwise IoUs at least 1e-4 away from
 the threshold, so that round-off cannot flip a suppression.
+
+K2's pair filter (`pairs_to_clip_plain`): on spread, clustered, coincident,
+touching, mixed-size and 1 mm boxes, every pair it rejects has plain IoU exactly
+0, so the mask restricted to the clipped pairs equals the whole mask bit for
+bit. At thr < 0 it clips every candidate pair. Touching boxes far from the
+origin get IoUs far from their overlap (the reference's clip leaves their
+shoelace chain open), which is why the filter has no area bound.
 """
 import numpy as np
 import pytest
@@ -21,6 +28,7 @@ import jax.numpy as jnp
 from unidistill_tpu.ops import nms as jnms
 
 from unidistill_torch.ops import nms as port
+from unidistill_torch.serving.synthetic import nms_lanes
 
 RTOL, ATOL = 1e-4, 1e-5
 MARGIN = 1e-4
@@ -131,13 +139,28 @@ def _nms_lanes(seed, L, K, n_invalid, thr):
     return boxes7, valid
 
 
+def _clustered_lanes(seed, L, K, thr):
+    """`nms_lanes("clustered")` as 7-dof boxes, checked as `_nms_lanes`."""
+    bev, valid = nms_lanes("clustered", seed, L, K)
+    boxes7 = np.zeros((L, K, 7), np.float32)
+    boxes7[..., [0, 1, 3, 4, 6]] = bev
+    boxes7[..., 5] = 1.6
+    iou = np.asarray(jax.vmap(jnms.rotated_iou_bev)(jnp.asarray(bev), jnp.asarray(bev)))
+    assert np.abs(iou - thr).min() > MARGIN, "case too close to the threshold"
+    return boxes7, valid
+
+
 @pytest.mark.parametrize("seed,L,K,cap,post,thr", [
     (0, 3, 128, 512, 40, 0.2),   # C = 128
     (1, 2, 100, 512, 30, 0.1),   # C = 100 padded to 128
     (5, 4, 200, 64, 20, 0.3),    # cap binds: C = 64
+    (0, 4, 512, 512, 100, 0.1),  # the clustered layout: 40 cars x 12 candidates
 ])
 def test_nms_batched_matches_jax(seed, L, K, cap, post, thr):
-    boxes7, valid = _nms_lanes(seed, L, K, 7, thr)
+    if K == 512:
+        boxes7, valid = _clustered_lanes(seed, L, K, thr)
+    else:
+        boxes7, valid = _nms_lanes(seed, L, K, 7, thr)
     ref_idx, ref_mask = map(np.asarray, jnms.nms_bev_batched(
         jnp.asarray(boxes7), jnp.asarray(valid), thr, post, cap=cap))
     idx, mask = port.nms_bev_batched(torch.from_numpy(boxes7), torch.from_numpy(valid), thr, post, cap=cap)
@@ -197,3 +220,82 @@ def test_cuda_wrappers_reject_cpu_tensors():
         port.nms_greedy_select_cuda(torch.zeros(1, 64, 1, dtype=torch.int64), valid, 10)
     with pytest.raises(ValueError, match="CUDA"):
         port.rotated_iou_cuda(bev, bev)
+
+
+FILTER_LAYOUTS = ("spread", "clustered", "coincident", "touching", "mixed_sizes", "tiny")
+
+
+def _filter_case(kind, seed=0):
+    bev, valid = nms_lanes(kind, seed, L=2, C=128, objects=8, per_object=12)
+    bev, valid = torch.from_numpy(bev), torch.from_numpy(valid)
+    valid[:, -5:] = False
+    C = bev.shape[1]
+    cand = torch.triu(torch.ones(C, C, dtype=torch.bool), 1)[None] & valid[:, None, :]
+    return bev, valid, cand
+
+
+@pytest.mark.parametrize("thr", [0.0, 0.1, 0.8])
+@pytest.mark.parametrize("layout", FILTER_LAYOUTS)
+def test_pair_filter_rejects_only_pairs_without_a_bit(layout, thr):
+    bev, valid, cand = _filter_case(layout)
+    clip = port.pairs_to_clip_plain(bev, valid, thr)
+    assert not (clip & ~cand).any()
+    iou = port.rotated_iou_bev_plain(bev, bev)
+    rejected = cand & ~clip
+    assert clip.any()
+    assert rejected.any() == (layout != "coincident")
+    assert (iou[rejected] == 0).all(), iou[rejected & (iou != 0)]
+
+
+@pytest.mark.parametrize("thr", [0.0, 0.1, 0.8])
+def test_mask_over_the_clipped_pairs_is_exact(thr):
+    for i, layout in enumerate(FILTER_LAYOUTS):
+        bev, valid, _ = _filter_case(layout, seed=10 + i)
+        over = port.iou_over_plain(bev, valid, thr)
+        clip = port.pairs_to_clip_plain(bev, valid, thr)
+        assert torch.equal(over & clip, over), layout
+        assert torch.equal(port.pack_mask_bits(over & clip), port.pack_mask_bits(over))
+
+
+def test_pair_filter_is_off_below_zero():
+    """At thr < 0 a pair of boxes that cannot meet (IoU 0) has its bit set,
+    so the filter must clip every candidate pair."""
+    bev, valid, cand = _filter_case("spread")
+    assert torch.equal(port.pairs_to_clip_plain(bev, valid, -0.1), cand)
+    over = port.iou_over_plain(bev, valid, -0.1)
+    assert torch.equal(over, cand)
+    assert (cand & (port.rotated_iou_bev_plain(bev, bev) == 0)).any()
+    assert not torch.equal(port.pairs_to_clip_plain(bev, valid, 0.0), cand)
+
+
+def _untame_lane():
+    """Boxes the filter cannot bound beside ordinary ones: 6 km out, a 0.1 mm
+    side 60 m out, zero dims, NaN."""
+    bev = torch.tensor([[0.0, 0.0, 2.0, 2.0, 0.3], [6000.0, 0.0, 4.0, 2.0, 0.0],
+                        [6001.0, 0.5, 4.0, 2.0, 0.1], [60.0, 1.0, 1e-4, 3.0, 0.2],
+                        [61.0, 1.0, 2.0, 2.0, 0.0], [0.5, 0.0, 0.0, 0.0, 0.0],
+                        [float("nan"), 0.0, 2.0, 2.0, 0.0], [0.4, 0.2, 2.0, 2.0, 0.1]])
+    return torch.cat([bev, bev[:1].repeat(56, 1) + torch.arange(56.0)[:, None] * torch.tensor(
+        [3.0, 0.0, 0.0, 0.0, 0.0])])[None]
+
+
+def test_pair_filter_clips_boxes_it_cannot_bound():
+    bev = _untame_lane()
+    valid = torch.ones(1, 64, dtype=torch.bool)
+    clip = port.pairs_to_clip_plain(bev, valid, 0.1)
+    for row in (1, 3, 5, 6):  # 6 km out, a 0.1 mm side, zero dims, NaN
+        assert clip[0, row, row + 1:].all() and clip[0, :row, row].all()
+    for thr in (0.0, 0.1):
+        over = port.iou_over_plain(bev, valid, thr)
+        assert torch.equal(over & port.pairs_to_clip_plain(bev, valid, thr), over)
+
+
+def test_touching_boxes_far_out_break_an_area_bound():
+    """Why K2 has no area bound: two boxes that share an edge 60 m out get a
+    plain IoU far above min(a, b) / max(a, b), and the filter clips them."""
+    bev = torch.tensor([[[60.0, 20.0, 2.0, 2.0, 0.0], [62.0, 20.0, 2.0, 4.0, 0.0]]])
+    valid = torch.ones(1, 2, dtype=torch.bool)
+    iou = port.rotated_iou_bev_plain(bev, bev)[0, 0, 1]
+    assert iou > 1.0  # min / max is 0.5
+    assert port.pairs_to_clip_plain(bev, valid, 0.1)[0, 0, 1]
+    assert port.iou_over_plain(bev, valid, 0.1)[0, 0, 1]

@@ -1,11 +1,13 @@
-"""Device time of two ops of a source tree on the card, to compare two
-commits in one call: run `k5` and `voxelize` once for each tree, in the
+"""Device time of ops of a source tree on the card, to compare two commits
+in one call: run `k5`, `voxelize` and `nms` once for each tree, in the
 order parent, change, change, parent.
 
     python tools/op_times.py cells OUT.pt
     python tools/op_times.py k5 TREE CELLS.pt
     python tools/op_times.py voxelize TREE
     python tools/op_times.py predict TREE lidar|fusion
+    python tools/op_times.py nms_cells OUT.pt
+    python tools/op_times.py nms TREE NMS_CELLS.pt
 
 `cells` writes, with this tree's `serving.synthetic.nuscenes_cells`, the
 flat BEV cells of the full-width camera model (B 4, six cameras, D 112,
@@ -30,6 +32,18 @@ seed=21)`: two warm-up requests, then 20 timed by the host clock around
 work that ends in a synchronise, as `chip_smoke.py` times a request. Each
 prints one JSON line per measurement, after the card's name and power
 limit.
+
+`nms_cells` writes, with this tree, four sets of NMS lanes (24 lanes x 512
+rows, threshold 0.1, post 100): the lanes that `Detector.predict` hands to
+`nms_bev_batched` for the full-width camera and LiDAR detectors (seeded
+random weights and batches, BatchNorm calibrated, as `chip_smoke.py` makes
+them), and `synthetic.nms_lanes` "clustered" and "coincident" (seed 0).
+`nms` times TREE's K2 (`rotated_iou_mask_cuda`) and K3
+(`nms_greedy_select_cuda`) on each, the mean of 50 launches by CUDA events
+(`k2_ms`, `k3_ms`: the wrapper's host work shows where a kernel is shorter)
+and the kernel's own device time from torch.profiler (`*_kernel_ms`), after
+holding K2's words to TREE's plain mask outside a 1e-5 band of the
+threshold and K3's keep sets to TREE's plain greedy.
 """
 import dataclasses
 import json
@@ -61,6 +75,23 @@ def _cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters, (time.perf_counter() - t0) / iters * 1e3
+
+
+def _kernel_ms(fn, iters, name):
+    """Device time of the kernels whose name holds `name`, per call of fn,
+    from torch.profiler's CUDA activity (no host gaps between launches)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # one profile in a dozen came back without the kernel's activity on the H100
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "device_time_total", 0.0) for e in prof.key_averages() if name in e.key)
+        if us > 0:
+            break
+    return us / iters / 1e3
 
 
 def cells(out):
@@ -155,8 +186,71 @@ def predict(tree, modality):
                           min_ms=round(lat[0], 3), max_ms=round(lat[-1], 3))), flush=True)
 
 
+def nms_cells(out):
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from unidistill_torch.configs.nuscenes import camera_exp, lidar_exp
+    from unidistill_torch.decode import proposals
+    from unidistill_torch.ops import nms
+    from unidistill_torch.serving.predictor import Detector
+    from unidistill_torch.serving.synthetic import (
+        calibrate_batchnorm, lidar_batch, nms_lanes, nuscenes_batch, random_state_dict)
+    from unidistill_torch.training.steps import model_inputs
+    dev = torch.device("cuda")
+    saved = {}
+    for name, exp, seeds in (("camera", camera_exp, (0, 1)), ("lidar", lidar_exp, (10, 11))):
+        cfg = exp().model
+        det = Detector(cfg, random_state_dict(cfg, seed=seeds[0]), device="cuda")
+        if name == "camera":
+            batch = nuscenes_batch(cfg, B, seed=seeds[1])
+            request = {"imgs": torch.from_numpy(batch["imgs"]).to(dev),
+                       "mats": {k: torch.from_numpy(v).to(dev) for k, v in batch["mats"].items()}}
+        else:
+            request = {k: torch.from_numpy(v).to(dev) for k, v in lidar_batch(cfg, B, seed=seeds[1]).items()}
+        calibrate_batchnorm(det.model, model_inputs(request, cfg, dev, training=False))
+        calls, real = [], proposals.nms_bev_batched
+        proposals.nms_bev_batched = lambda *a, **kw: calls.append((a, kw)) or real(*a, **kw)
+        det.predict(request)
+        proposals.nms_bev_batched = real
+        (boxes, valid, thr, post), kw = calls[0]
+        bev, v = nms._candidate_lanes(boxes, valid, post, kw.get("cap", 512))
+        saved[name] = (bev.cpu(), v.cpu(), float(thr), int(post))
+        del det
+        torch.cuda.empty_cache()
+    for kind in ("clustered", "coincident"):
+        bev, v = nms_lanes(kind, seed=0)
+        saved[kind] = (torch.from_numpy(bev), torch.from_numpy(v), 0.1, 100)
+    for name, (bev, v, thr, post) in saved.items():
+        print(json.dumps(dict(layout=name, lanes=v.shape[0], C=v.shape[1], valid_rows=int(v.sum()),
+                              thr=thr, post=post)), flush=True)
+    torch.save(saved, out)
+
+
+def nms(tree, cells_file):
+    sys.path.insert(0, tree)
+    from unidistill_torch.ops import nms as ops
+    for name, (bev, v, thr, post) in torch.load(cells_file).items():
+        bev, v = bev.cuda(), v.cuda()
+        words = ops.rotated_iou_mask_cuda(bev, v, thr)
+        diff = ops.unpack_mask_bits(words) ^ ops.iou_over_plain(bev, v, thr)
+        if not ((ops.rotated_iou_bev_plain(bev, bev) - thr).abs()[diff] < 1e-5).all():
+            raise RuntimeError(f"K2 on {name}: mask differs off the threshold band")
+        keep = ops.nms_greedy_select_cuda(words, v, post)
+        ref = ops.greedy_select_plain(ops.unpack_mask_bits(words), v, post)
+        if not (torch.equal(keep[0], ref[0]) and torch.equal(keep[1], ref[1])):
+            raise RuntimeError(f"K3 on {name}: keep sets differ from the plain greedy")
+        k2 = lambda: ops.rotated_iou_mask_cuda(bev, v, thr)
+        k3 = lambda: ops.nms_greedy_select_cuda(words, v, post)
+        k2_ms, _ = _cuda_ms(k2, 50)
+        k3_ms, _ = _cuda_ms(k3, 50)
+        print(json.dumps(dict(tree=tree, layout=name, k2_ms=round(k2_ms, 5), k3_ms=round(k3_ms, 5),
+                              k2_kernel_ms=round(_kernel_ms(k2, 50, "iou_mask_kernel"), 5),
+                              k3_kernel_ms=round(_kernel_ms(k3, 50, "greedy_kernel"), 5),
+                              differing_bits=int(diff.sum()), kept=int(keep[1].sum()))), flush=True)
+
+
 if __name__ == "__main__":
     if not torch.cuda.is_available():
         sys.exit("op_times: needs a CUDA device")
     print(_card(), flush=True)
-    {"cells": cells, "k5": k5, "voxelize": voxelize, "predict": predict}[sys.argv[1]](*sys.argv[2:])
+    {"cells": cells, "k5": k5, "voxelize": voxelize, "predict": predict, "nms_cells": nms_cells,
+     "nms": nms}[sys.argv[1]](*sys.argv[2:])

@@ -8,7 +8,9 @@ On CUDA tensors:
   * `rotated_iou_bev` launches kernel K2 in float mode ([L, M, N] IoU);
   * `nms_bev_batched` launches K2 in mask mode (the upper triangle of
     `(iou > thr) & valid[j]` packed into 64-bit words [L, C, C/64], the
-    layout of mmdet3d's `iou3d_nms_cuda`), then K3, the serial greedy walk.
+    layout of mmdet3d's `iou3d_nms_cuda`; at thr >= 0 it clips only the
+    pairs that `pairs_to_clip_plain` keeps, since the others have IoU 0),
+    then K3, the serial greedy walk, one warp per lane.
 On CPU tensors they run the plain versions below, which repeat the kernels'
 arithmetic in PyTorch (`_clip_contrib_2d` of the JAX package term for term).
 `nms_bev` is the single-lane serial oracle and is plain only.
@@ -25,6 +27,13 @@ _EPS = 1e-8
 _PAR = 1e-5  # |den| below PAR·|d| -> the segment is parallel to the half-plane
 _BND = 1e-5  # boundary tolerance in meters
 _WORD = 64   # rows per mask word
+# K2's pair filter (csrc/nms.cu has the argument for each value): the margin
+# in metres beside its share of the pair's scale, the least dim of a "tame"
+# box per metre of 1 m + |cx| + |cy|, and the largest scale of a tame box
+_MARGIN, _REL_MARGIN, _TAME, _MAX_SCALE = 1e-2, 1e-5, 1e-5, 5e3
+# a mask bit may differ between K2 and its plain version only where the IoU
+# lies within this band of the threshold (libm cos/sin may differ by an ulp)
+K2_THR_BAND = 1e-5
 
 
 def _corner_xy_lists(cx, cy, dx, dy, r):
@@ -139,6 +148,45 @@ def iou_over_plain(bev: torch.Tensor, valid: torch.Tensor, thr: float) -> torch.
     return (iou > thr) & valid[:, None, :] & tri[None]
 
 
+def _reach_terms(bev: torch.Tensor):
+    """Per box, what K2's pair filter reads (`reach_terms` in csrc/nms.cu):
+    centre, cos and sin of the yaw, half-extents and the scale
+    |cx| + |cy| + |dx| + |dy| (inf for a box that is not tame)."""
+    cx, cy, dx, dy, r = bev.float().unbind(-1)
+    adx, ady = dx.abs(), dy.abs()
+    scale = cx.abs() + cy.abs() + adx + ady
+    tame = (torch.minimum(adx, ady) >= _TAME * (1.0 + cx.abs() + cy.abs())) & (scale < _MAX_SCALE)
+    scale = torch.where(tame, scale, torch.full_like(cx, float("inf")))
+    return dict(cx=cx, cy=cy, cos=torch.cos(r), sin=torch.sin(r), hx=adx * 0.5, hy=ady * 0.5, scale=scale)
+
+
+def pairs_to_clip_plain(bev: torch.Tensor, valid: torch.Tensor, thr: float) -> torch.Tensor:
+    """K2's pair filter, plain: bool [L, C, C], true for the pairs (i, j) that
+    the mask mode clips: j > i, valid[j], and at thr >= 0 boxes that no axis
+    of either separates by more than the margin (`may_meet` in csrc/nms.cu,
+    the same float arithmetic). Every other pair has IoU exactly 0, so bit
+    0. Used by the tests and to count the kernel's clipped pairs; no path
+    on the card runs it."""
+    C = bev.shape[1]
+    ar = torch.arange(C, device=bev.device)
+    out = (ar[:, None] < ar[None, :])[None] & valid[:, None, :]
+    if not thr >= 0:
+        return out
+    t = _reach_terms(bev)
+    a = {k: v[:, :, None] for k, v in t.items()}
+    b = {k: v[:, None, :] for k, v in t.items()}
+    ss = a["scale"] + b["scale"]
+    m = _MARGIN + _REL_MARGIN * ss
+    ddx, ddy = b["cx"] - a["cx"], b["cy"] - a["cy"]
+    co = (a["cos"] * b["cos"] + a["sin"] * b["sin"]).abs()
+    si = (a["sin"] * b["cos"] - a["cos"] * b["sin"]).abs()
+    out &= ~((ddx * a["cos"] + ddy * a["sin"]).abs() > a["hx"] + b["hx"] * co + b["hy"] * si + m)
+    out &= ~((ddy * a["cos"] - ddx * a["sin"]).abs() > a["hy"] + b["hx"] * si + b["hy"] * co + m)
+    out &= ~((ddx * b["cos"] + ddy * b["sin"]).abs() > b["hx"] + a["hx"] * co + a["hy"] * si + m)
+    out &= ~((ddy * b["cos"] - ddx * b["sin"]).abs() > b["hy"] + a["hx"] * si + a["hy"] * co + m)
+    return out
+
+
 def pack_mask_bits(over: torch.Tensor) -> torch.Tensor:
     """bool [L, C, C] -> int64 words [L, C, C/64]; bit j of word w is column
     64 w + j (the bit pattern of K2's uint64 output)."""
@@ -157,7 +205,9 @@ def unpack_mask_bits(words: torch.Tensor) -> torch.Tensor:
 
 def rotated_iou_mask_cuda(bev: torch.Tensor, valid: torch.Tensor, thr: float) -> torch.Tensor:
     """Kernel K2, mask mode: bev [L, C, 5] f32, valid [L, C] bool, C % 64 == 0
-    -> int64 words [L, C, C/64] holding the uint64 bit pattern."""
+    -> int64 words [L, C, C/64] holding the uint64 bit pattern. Equals
+    `pack_mask_bits(iou_over_plain(...))` wherever the IoU lies outside
+    K2_THR_BAND of thr."""
     L, C = bev.shape[:2]
     if C % _WORD:
         raise ValueError(f"rotated_iou_mask: C={C} must be a multiple of {_WORD}")
@@ -201,6 +251,8 @@ def nms_greedy_select_cuda(words: torch.Tensor, valid: torch.Tensor,
     """Kernel K3: words [L, C, C/64] from K2, valid [L, C] bool ->
     keep_idx [L, post] int32 (padded with C), keep_mask [L, post] bool."""
     L, C = valid.shape
+    if C % _WORD:
+        raise ValueError(f"nms_greedy_select: C={C} must be a multiple of {_WORD}")
     _check_cuda("words", words, torch.int64, (L, C, C // _WORD))
     _check_cuda("valid", valid, torch.bool, (L, C))
     if not 0 < post_max_size <= C:

@@ -24,6 +24,8 @@ cells (cell truncation is bitwise-sensitive at the edges).
 `train_batch(s_cfg, t_cfg, B, seed)` the frames of a train or distill step
 of any detector or pair: camera images and matrices, LiDAR clouds and the
 GT boxes of the clouds' scenes.
+`nms_lanes(kind, seed)` gives score-sorted BEV candidate lanes for the NMS
+kernels: candidates clustered around objects, or every box on one centre.
 """
 from __future__ import annotations
 
@@ -334,3 +336,86 @@ def train_batch(s_cfg: ModelConfig, t_cfg: ModelConfig, B: int, seed: int) -> Di
     points, mask, scenes = _lidar_clouds(t_cfg, B, seed)
     return dict(nuscenes_batch(s_cfg, B, seed), points=points, points_mask=mask,
                 gt_boxes=scene_gt_boxes(scenes, s_cfg.caps.max_gt_boxes))
+
+
+def nms_lanes(kind: str, seed: int, L: int = 24, C: int = 512, objects: int = 40,
+              per_object: int = 12) -> Tuple[np.ndarray, np.ndarray]:
+    """BEV candidate lanes for the NMS kernels, in score order: bev [L, C, 5]
+    (cx, cy, dx, dy, rot) float32 and valid [L, C] bool.
+
+    `clustered`: `objects` cars of 4.6 x 1.9 m at uniform centres and yaws
+    over +-54 m, `per_object` candidates each (centre sigma 0.25 m, dims
+    +-3%, yaw sigma 0.05 rad) in random score order, then invalid rows (more
+    candidates of the same objects, below the score threshold).
+    `coincident`: every box on one centre with a uniform yaw and dims within
+    3% of 4.6 x 1.9 m, so that every pair meets.
+    `spread`: uniform centres over +-20 m, dims 1-5 m, uniform yaws.
+    `touching`: pairs of rows (2k, 2k + 1) up to 61 m out; the second box
+    lies beside the first along its x axis (a shared edge where the sides
+    are equal) or off its corner, turned by a multiple of 90 degrees, with
+    gaps of 0, 1e-6, 1e-4, 1e-3, 1e-2, 1.5e-2 or 3e-2 m (none near the
+    clip's 1e-5 m boundary tolerance).
+    `mixed_sizes`: boxes of 30 m x 0.5-30 m among 0.5 m ones over +-20 m.
+    `tiny`: pairs of rows up to 61 m out: a 0.5-5 m box, then a box with a
+    side at the decoders' 1 mm clamp (the other 1 mm to 5 m) within ~2 cm of
+    one of the first box's corners.
+    Every row is valid but in `clustered`.
+    """
+    rng = np.random.RandomState(seed)
+    car = np.array([4.6, 1.9])
+    yaws = lambda *shape: rng.uniform(-np.pi, np.pi, shape)
+    valid = np.ones((L, C), bool)
+    if kind == "coincident":
+        bev = np.concatenate([rng.uniform(-54, 54, (L, 1, 2)).repeat(C, 1),
+                              car * rng.uniform(0.97, 1.03, (L, C, 2)), yaws(L, C, 1)], -1)
+    elif kind == "spread":
+        bev = np.concatenate([rng.uniform(-20, 20, (L, C, 2)), rng.uniform(1, 5, (L, C, 2)),
+                              yaws(L, C, 1)], -1)
+    elif kind == "mixed_sizes":
+        big = rng.rand(L, C, 1) < 0.3
+        dims = np.where(big, np.stack([np.full((L, C), 30.0), rng.uniform(0.5, 30, (L, C))], -1),
+                        rng.uniform(0.45, 0.55, (L, C, 2)))
+        bev = np.concatenate([rng.uniform(-20, 20, (L, C, 2)), dims, yaws(L, C, 1)], -1)
+    elif kind == "touching":
+        n = C // 2
+        a = np.concatenate([rng.uniform(-61, 61, (L, n, 2)), rng.uniform(0.5, 5, (L, n, 2)),
+                            yaws(L, n, 1)], -1)
+        gap = rng.choice([0.0, 1e-6, 1e-4, 1e-3, 1e-2, 1.5e-2, 3e-2], (L, n))
+        quarter = rng.randint(0, 4, (L, n))
+        b = a.copy()
+        b[..., 4] += quarter * np.pi / 2
+        b[..., 2:4] = np.where(rng.rand(L, n, 1) < 0.5, a[..., 2:4], rng.uniform(0.5, 5, (L, n, 2)))
+        ext_x = np.where(quarter % 2 == 0, b[..., 2], b[..., 3]) / 2  # b's half-extents on a's axes
+        ext_y = np.where(quarter % 2 == 0, b[..., 3], b[..., 2]) / 2
+        off_x = a[..., 2] / 2 + ext_x + gap
+        off_y = np.where(rng.rand(L, n) < 0.4, a[..., 3] / 2 + ext_y + gap, 0.0)
+        c, s = np.cos(a[..., 4]), np.sin(a[..., 4])
+        b[..., 0] = a[..., 0] + off_x * c - off_y * s
+        b[..., 1] = a[..., 1] + off_x * s + off_y * c
+        bev = np.stack([a, b], 2).reshape(L, C, 5)
+    elif kind == "tiny":
+        n = C // 2
+        a = np.concatenate([rng.uniform(-61, 61, (L, n, 2)), rng.uniform(0.5, 5, (L, n, 2)),
+                            yaws(L, n, 1)], -1)
+        lx, ly = a[..., 2] / 2 * rng.choice([-1, 1], (L, n)), a[..., 3] / 2 * rng.choice([-1, 1], (L, n))
+        c, s = np.cos(a[..., 4]), np.sin(a[..., 4])
+        corner = a[..., :2] + np.stack([lx * c - ly * s, lx * s + ly * c], -1)
+        dims = np.stack([np.full((L, n), 1e-3), rng.uniform(1e-3, 5, (L, n))], -1)
+        dims = np.where(rng.rand(L, n, 1) < 0.5, dims, dims[..., ::-1])
+        b = np.concatenate([corner + rng.normal(0, 0.02, (L, n, 2)), dims, yaws(L, n, 1)], -1)
+        bev = np.stack([a, b], 2).reshape(L, C, 5)
+    elif kind == "clustered":
+        n_valid = min(C, objects * per_object)
+        obj_c = rng.uniform(-54, 54, (L, objects, 2))
+        obj_yaw = yaws(L, objects)
+        which = np.stack([rng.permutation(np.arange(C) % objects) for _ in range(L)])
+        which[:, :n_valid] = np.stack([rng.permutation(np.repeat(np.arange(objects), per_object))[:n_valid]
+                                       for _ in range(L)])
+        centre = np.take_along_axis(obj_c, which[..., None], 1) + rng.normal(0, 0.25, (L, C, 2))
+        dims = car * rng.uniform(0.97, 1.03, (L, C, 2))
+        yaw = np.take_along_axis(obj_yaw, which, 1) + rng.normal(0, 0.05, (L, C))
+        bev = np.concatenate([centre, dims, yaw[..., None]], -1)
+        valid[:, n_valid:] = False
+    else:
+        raise ValueError(f"unknown NMS layout {kind!r}")
+    return bev.astype(np.float32), valid
