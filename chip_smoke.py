@@ -31,8 +31,10 @@ Phases, each printed on its own line:
            plain mask outside K2_THR_BAND, K3's keep sets equal, reruns
            bit-identical; valid rows, upper pairs, pairs clipped (modelled
            by the plain filter), bits set, rows walked and kept, ms, bounds
-           (K2's over the clipped pairs and over every upper pair; K3's
-           bytes and its serial chain)
+           (K2's over the clipped pairs and over every upper pair; K3's by
+           bytes, with a model of its serial chain beside it); each ms is
+           the kernel's device time from torch.profiler, or by CUDA events
+           where the profiler saw none (`ms_source`)
   heads    one request's head tensors, kernels vs plain versions, in bf16
            and in f32; rois: the ROIs from the same heads, K2/K3 vs plain
   tiny     a small float32 camera detector on the card vs the same on the CPU
@@ -134,10 +136,11 @@ BF16_OPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 # float operations per rotated-IoU pair, counted from csrc/nms.cu: 8 edge
 # clips x (4 planes x 14 + 13 tail) + 6 for the IoU
 IOU_OPS_PER_PAIR = 8 * (4 * 14 + 13) + 6
-# K3's serial chain: one dependent shared-memory round trip a row walked,
-# taken as 30 SM cycles (an assumption, not measured here) at the card's
+# a model of K3's serial chain, printed beside its bound and not part of it
+# (no latency is measured here): a row walked is three dependent integer
+# operations (bit test, select, OR), taken as 12 SM cycles, at the card's
 # maximum SM clock (nvidia-smi)
-SMEM_ROUND_TRIP_CYCLES = 30
+K3_CHAIN_CYCLES_MODEL = 12
 # tolerances, with their reasons
 # K1 sums (sum of a ray's depths) x context per (cell, ray) run in a fixed
 # order; its plain version sums depth x context with index_add_'s atomics
@@ -232,7 +235,7 @@ def kernel_ms(fn, name, iters=50):
     """Device time a call of fn spends in kernels whose name holds `name`,
     from torch.profiler's CUDA activity: for a kernel shorter than its
     wrapper's host work, back-to-back CUDA events time the host. None if
-    the profiler recorded no device time."""
+    three profiles in a row recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -430,10 +433,12 @@ def nms_checks(label, bev, v, thr, post):
     versions: K2's words bit for bit outside K2_THR_BAND of thr, K3's keep
     sets equal, each bit-identical on a rerun. Prints the pairs K2 clips
     (modelled by the plain filter, `pairs_to_clip_plain`), the bits set,
-    the rows K3 walks and keeps, each kernel's ms (its device time from
-    torch.profiler; `events_ms` the mean of back-to-back launches by CUDA
-    events, host work included) and bound, and K2's bound if every upper
-    pair were clipped. Returns the two kernels' table fields."""
+    the rows K3 walks and keeps, each kernel's ms and bound, K2's bound if
+    every upper pair were clipped and K3's modelled serial chain. A
+    kernel's ms is its device time from torch.profiler, or, where three
+    profiles recorded none, the mean of back-to-back launches by CUDA
+    events (host work included); `ms_source` says which. Returns the two
+    kernels' table fields."""
     from unidistill_torch.ops import nms
     L, C = v.shape
     words = nms.rotated_iou_mask_cuda(bev, v, thr)
@@ -451,17 +456,19 @@ def nms_checks(label, bev, v, thr, post):
     upper = int((tri[None] & v[:, None, :]).sum().item())
     clipped = int(nms.pairs_to_clip_plain(bev, v, thr).sum().item())
     events_ms = cuda_ms(lambda: nms.rotated_iou_mask_cuda(bev, v, thr), iters=50)
-    ms = kernel_ms(lambda: nms.rotated_iou_mask_cuda(bev, v, thr), "iou_mask_kernel") or events_ms
+    ms = kernel_ms(lambda: nms.rotated_iou_mask_cuda(bev, v, thr), "iou_mask_kernel")
+    ms, source = (events_ms, "events") if ms is None else (ms, "profiler")
     plain_ms = cuda_ms(lambda: nms.pack_mask_bits(nms.iou_over_plain(bev, v, thr)), iters=3)
     io_s = (bev.numel() * 4 + v.numel() + words.numel() * 8) / HBM_BYTES_PER_S
     ops_s = clipped * IOU_OPS_PER_PAIR / F32_OPS_PER_S
     bound, bound_all = max(io_s, ops_s) * 1e3, max(io_s, L * C * (C - 1) // 2 * IOU_OPS_PER_PAIR / F32_OPS_PER_S) * 1e3
     log(f"K2 rotated_iou_mask {label}", lanes=L, C=C, valid_rows=int(v.sum().item()), upper_pairs=upper,
         pairs_clipped_modelled=clipped, bits_set=int(over_p.sum().item()), differing_bits=n_diff,
-        band=nms.K2_THR_BAND, bit_identical="true", ms=f"{ms:.5f}", events_ms=f"{events_ms:.5f}",
-        plain_ms=f"{plain_ms:.4f}",
+        band=nms.K2_THR_BAND, bit_identical="true", ms=f"{ms:.5f}", ms_source=source,
+        events_ms=f"{events_ms:.5f}", plain_ms=f"{plain_ms:.4f}",
         bound_ms=f"{bound:.5f}", bound_all_pairs_ms=f"{bound_all:.5f}")
-    k2 = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="operations" if ops_s >= io_s else "bytes")
+    k2 = dict(ms=ms, ms_source=source, plain_ms=plain_ms, bound_ms=bound,
+              bound_by="operations" if ops_s >= io_s else "bytes")
 
     idx_k, keep_k = nms.nms_greedy_select_cuda(words, v, post)
     idx_2, keep_2 = nms.nms_greedy_select_cuda(words, v, post)
@@ -472,22 +479,22 @@ def nms_checks(label, bev, v, thr, post):
     if not (torch.equal(idx_k, idx_2) and torch.equal(keep_k, keep_2)):
         raise RuntimeError(f"K3 {label}: two runs on the same inputs are not bit-identical")
     events_ms = cuda_ms(lambda: nms.nms_greedy_select_cuda(words, v, post), iters=50)
-    ms = kernel_ms(lambda: nms.nms_greedy_select_cuda(words, v, post), "greedy_kernel") or events_ms
+    ms = kernel_ms(lambda: nms.nms_greedy_select_cuda(words, v, post), "greedy_kernel")
+    ms, source = (events_ms, "events") if ms is None else (ms, "profiler")
     plain_ms = cuda_ms(lambda: nms.greedy_select_plain(unpacked, v, post), iters=3)
     kept = keep_p.sum(1)
     # the greedy walks a lane's rows up to its post-th kept row (all C if fewer)
     walked = torch.where(kept == post, idx_p[:, -1].long() + 1, torch.full_like(kept, C))
     kept_rows = idx_p.long()[keep_p]
     k3_bytes = int(((C // 64 - kept_rows // 64) * 8).sum().item()) + v.numel() + idx_k.numel() * 5
-    io_s = k3_bytes / HBM_BYTES_PER_S
-    chain_s = int(walked.max().item()) * SMEM_ROUND_TRIP_CYCLES / sm_clock_hz()
-    bound = max(io_s, chain_s) * 1e3
+    bound = k3_bytes / HBM_BYTES_PER_S * 1e3  # its integer operations take far less at any peak
+    chain_model_ms = int(walked.max().item()) * K3_CHAIN_CYCLES_MODEL / sm_clock_hz() * 1e3
     log(f"K3 nms_greedy_select {label}", lanes=L, rows_walked_max=int(walked.max().item()),
         rows_walked_total=int(walked.sum().item()), kept_total=int(kept.sum().item()),
-        kept_min=int(kept.min().item()), equal=True, bit_identical="true", ms=f"{ms:.5f}",
-        events_ms=f"{events_ms:.5f}", plain_ms=f"{plain_ms:.4f}", bytes_ms=f"{io_s * 1e3:.6f}", chain_floor_ms=f"{chain_s * 1e3:.6f}",
-        bound_ms=f"{bound:.6f}")
-    k3 = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="operations" if chain_s >= io_s else "bytes")
+        kept_min=int(kept.min().item()), equal=True, bit_identical="true", ms=f"{ms:.5f}", ms_source=source,
+        events_ms=f"{events_ms:.5f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound:.6f}", bound_by="bytes",
+        chain_model_ms=f"{chain_model_ms:.6f}")
+    k3 = dict(ms=ms, ms_source=source, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes")
     return k2, k3
 
 

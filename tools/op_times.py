@@ -41,7 +41,8 @@ them), and `synthetic.nms_lanes` "clustered" and "coincident" (seed 0).
 `nms` times TREE's K2 (`rotated_iou_mask_cuda`) and K3
 (`nms_greedy_select_cuda`) on each, the mean of 50 launches by CUDA events
 (`k2_ms`, `k3_ms`: the wrapper's host work shows where a kernel is shorter)
-and the kernel's own device time from torch.profiler (`*_kernel_ms`), after
+and the kernel's own device time from torch.profiler (`*_kernel_ms`, null
+if three profiles in a row recorded none), after
 holding K2's words to TREE's plain mask outside a 1e-5 band of the
 threshold and K3's keep sets to TREE's plain greedy.
 """
@@ -63,7 +64,7 @@ def _card():
                           capture_output=True, text=True).stdout.strip()
 
 
-def _cuda_ms(fn, iters):
+def cuda_ms(fn, iters):
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -77,9 +78,10 @@ def _cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters, (time.perf_counter() - t0) / iters * 1e3
 
 
-def _kernel_ms(fn, iters, name):
+def kernel_ms(fn, iters, name):
     """Device time of the kernels whose name holds `name`, per call of fn,
-    from torch.profiler's CUDA activity (no host gaps between launches)."""
+    from torch.profiler's CUDA activity (no host gaps between launches);
+    None if three profiles in a row recorded none."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -90,8 +92,8 @@ def _kernel_ms(fn, iters, name):
             torch.cuda.synchronize()
         us = sum(getattr(e, "device_time_total", 0.0) for e in prof.key_averages() if name in e.key)
         if us > 0:
-            break
-    return us / iters / 1e3
+            return us / iters / 1e3
+    return None
 
 
 def cells(out):
@@ -135,7 +137,7 @@ def k5(tree, cells_file):
             torch.testing.assert_close(got / scale, want / scale, rtol=1e-5, atol=1e-5)
             err = max(err, (got - want).abs().max().item())
         del a, b, ref
-        ms, _ = _cuda_ms(fn, 50)
+        ms, _ = cuda_ms(fn, 50)
         print(json.dumps(dict(tree=tree, op="K5", geometry=name, ms=round(ms, 4), bit_identical=same,
                               max_abs_err=float(f"{err:.3e}"))), flush=True)
         if not same:
@@ -152,7 +154,7 @@ def voxelize(tree):
     pts, mask = torch.from_numpy(batch["points"]).cuda(), torch.from_numpy(batch["points_mask"]).cuda()
     args = (cfg.point_cloud_range, cfg.voxel_size, cfg.grid_size, cfg.caps.max_voxels_eval,
             cfg.caps.max_points_per_voxel)
-    ms, wall_ms = _cuda_ms(lambda: vox(pts, mask, *args), 20)
+    ms, wall_ms = cuda_ms(lambda: vox(pts, mask, *args), 20)
     print(json.dumps(dict(tree=tree, op="voxelize", points=int(mask.sum()), ms=round(ms, 4),
                           wall_ms=round(wall_ms, 4))), flush=True)
 
@@ -240,11 +242,12 @@ def nms(tree, cells_file):
             raise RuntimeError(f"K3 on {name}: keep sets differ from the plain greedy")
         k2 = lambda: ops.rotated_iou_mask_cuda(bev, v, thr)
         k3 = lambda: ops.nms_greedy_select_cuda(words, v, post)
-        k2_ms, _ = _cuda_ms(k2, 50)
-        k3_ms, _ = _cuda_ms(k3, 50)
+        k2_ms, _ = cuda_ms(k2, 50)
+        k3_ms, _ = cuda_ms(k3, 50)
+        k2_kernel_ms, k3_kernel_ms = kernel_ms(k2, 50, "iou_mask_kernel"), kernel_ms(k3, 50, "greedy_kernel")
         print(json.dumps(dict(tree=tree, layout=name, k2_ms=round(k2_ms, 5), k3_ms=round(k3_ms, 5),
-                              k2_kernel_ms=round(_kernel_ms(k2, 50, "iou_mask_kernel"), 5),
-                              k3_kernel_ms=round(_kernel_ms(k3, 50, "greedy_kernel"), 5),
+                              k2_kernel_ms=None if k2_kernel_ms is None else round(k2_kernel_ms, 5),
+                              k3_kernel_ms=None if k3_kernel_ms is None else round(k3_kernel_ms, 5),
                               differing_bits=int(diff.sum()), kept=int(keep[1].sum()))), flush=True)
 
 

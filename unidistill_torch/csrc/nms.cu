@@ -74,7 +74,6 @@ constexpr float kPar = 1e-5f;
 constexpr float kBnd = 1e-5f;
 constexpr int kTile = 64;
 constexpr int kMaskThreads = 256;
-constexpr int kRows = 64;  // rows of a 64 x 64 tile a block of the mask mode takes
 constexpr float kMargin = 1e-2f;     // m, beside 1e-5 x the pair's scale
 constexpr float kRelMargin = 1e-5f;
 constexpr float kTame = 1e-5f;       // min dim >= kTame (1 m + |cx| + |cy|)
@@ -202,18 +201,17 @@ __global__ void iou_f32_kernel(const float* __restrict__ a,
 
 // (b) NMS mask [L, C, C/64] uint64: bit j of word (i, cb) is set when
 // column c = 64 cb + j has c > i, valid[c] and iou(i, c) > thr; every word
-// below the diagonal is 0. One block of 256 threads per kRows x 64 slice of
-// a 64 x 64 tile on or above the diagonal (T(T+1)/2 tiles a lane, T = C/64);
-// a slice of the tile (rb, cb), rb < cb, also writes the zero words of its
-// rows' mirror in row block cb at column block rb.
+// below the diagonal is 0. One block of 256 threads per 64 x 64 tile on or
+// above the diagonal (T(T+1)/2 tiles a lane, T = C/64); the tile (rb, cb),
+// rb < cb, also writes the zero words of its mirror (cb, rb).
 //  1. Each box's clip terms (`box_terms`) and reach terms once, in shared
 //     memory.
-//  2. The slice's pairs are tested cheaply (`may_meet`): a thread keeps one
-//     column's reach terms in registers and walks kRows / 4 rows; a warp's
+//  2. The tile's pairs are tested cheaply (`may_meet`): a thread keeps one
+//     column's reach terms in registers and walks 16 rows; a warp's
 //     pairs that pass go to its own segment of a shared list (ballot,
 //     popcount rank; no atomics).
 //  3. The list is clipped densely, a pair a thread; a set bit is an integer
-//     atomicOr on the slice's shared words (OR does not depend on order, so
+//     atomicOr on the tile's shared words (OR does not depend on order, so
 //     reruns are bit-identical). Each word is written once.
 // At most 64 registers a thread, so that four blocks (32 warps) share an SM:
 // the clips are latency-bound chains of divisions.
@@ -221,21 +219,21 @@ __global__ void __launch_bounds__(kMaskThreads, 4)
 iou_mask_kernel(const float* __restrict__ boxes, const uint8_t* __restrict__ valid,
                 unsigned long long* __restrict__ mask, int C, float thr,
                 bool filter) {
-  constexpr int kWarps = kMaskThreads / 32, kSegment = kRows * kTile / kWarps;
-  __shared__ Box rows[kRows], cols[kTile];
-  __shared__ float4 rreach[kRows][2], creach[kTile][2];
-  __shared__ unsigned long long words[kRows];
-  __shared__ unsigned short pairs[kRows * kTile];  // kWarps segments
+  constexpr int kWarps = kMaskThreads / 32, kSegment = kTile * kTile / kWarps;
+  __shared__ Box rows[kTile], cols[kTile];
+  __shared__ float4 rreach[kTile][2], creach[kTile][2];
+  __shared__ unsigned long long words[kTile];
+  __shared__ unsigned short pairs[kTile * kTile];  // kWarps segments
   __shared__ int seg_end[kWarps];
   __shared__ unsigned col_ok[2];
   const int T = C / kTile;
-  const int l = blockIdx.y, slice = blockIdx.x % (kTile / kRows);
-  int rb = 0, t = blockIdx.x / (kTile / kRows);  // the t-th upper tile, row-major
+  const int l = blockIdx.y;
+  int rb = 0, t = blockIdx.x;  // the t-th upper tile, row-major
   while (t >= T - rb) {
     t -= T - rb;
     ++rb;
   }
-  const int cb = rb + t, r0 = rb * kTile + slice * kRows;
+  const int cb = rb + t, r0 = rb * kTile;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float* lane_boxes = boxes + (long long)l * C * 5;
   unsigned long long* lane_mask = mask + (long long)l * C * T;
@@ -245,15 +243,15 @@ iou_mask_kernel(const float* __restrict__ boxes, const uint8_t* __restrict__ val
     reach_terms(b, creach[tid]);
     const unsigned ok = __ballot_sync(0xffffffffu, valid[(long long)l * C + cb * kTile + tid] != 0);
     if (lane == 0) col_ok[warp] = ok;
-  } else if (tid < kTile + kRows) {
+  } else if (tid < 2 * kTile) {
     const int k = tid - kTile;
     const float* b = lane_boxes + (long long)(r0 + k) * 5;
     rows[k] = box_terms(b);
     reach_terms(b, rreach[k]);
     words[k] = 0ull;
-  } else if (tid >= 2 * kTile && tid < 2 * kTile + kRows) {
+  } else if (tid < 3 * kTile) {
     const int k = tid - 2 * kTile;
-    if (rb < cb) lane_mask[(long long)(cb * kTile + slice * kRows + k) * T + rb] = 0ull;
+    if (rb < cb) lane_mask[(long long)(cb * kTile + k) * T + rb] = 0ull;
   }
   __syncthreads();
   const unsigned long long ok_cols = col_ok[0] | (unsigned long long)col_ok[1] << 32;
@@ -264,9 +262,9 @@ iou_mask_kernel(const float* __restrict__ boxes, const uint8_t* __restrict__ val
     const bool col_live = (ok_cols >> c) & 1ull;
     // pair p = 64 r + c, r = 4 k + tid / 64: a warp's 32 lanes share the row
 #pragma unroll 4
-    for (int k = 0; k < kRows / 4; ++k) {
+    for (int k = 0; k < kTile / 4; ++k) {
       const int r = 4 * k + (tid >> 6);
-      bool pass = col_live && (cb > rb || c > slice * kRows + r);
+      bool pass = col_live && (cb > rb || c > r);
       if (filter) pass = pass && may_meet(rreach[r], b);
       const unsigned ballot = __ballot_sync(0xffffffffu, pass);
       if (pass) pairs[warp * kSegment + n_seg + __popc(ballot & ((1u << lane) - 1u))] = (unsigned short)(r * kTile + c);
@@ -285,7 +283,7 @@ iou_mask_kernel(const float* __restrict__ boxes, const uint8_t* __restrict__ val
     if (pair_iou(rows[r], cols[cc]) > thr) atomicOr(&words[r], 1ull << cc);
   }
   __syncthreads();
-  if (tid < kRows) lane_mask[(long long)(r0 + tid) * T + cb] = words[tid];
+  if (tid < kTile) lane_mask[(long long)(r0 + tid) * T + cb] = words[tid];
 }
 
 // K3: one warp (a block of 32 threads) per lane walks the C rows in score
@@ -304,8 +302,11 @@ iou_mask_kernel(const float* __restrict__ boxes, const uint8_t* __restrict__ val
 //    updated once.
 // While block b is walked, block b + 1's rows (words b + 1 .. W - 1) are
 // staged in shared memory by 8-byte cp.async (two buffers; where 2 x 64 W
-// words do not fit in 48 KB, rows are read from global memory instead). No
-// block barrier: the warp synchronises with __syncwarp.
+// words do not fit in 48 KB, rows are read from global memory instead). The
+// staging hides each block's wait for its rows behind the previous block's
+// walk: read from global memory, K3 took 1.9-3.1x as long on an H100
+// (`tools/nms_variants.py` k3_global). No block barrier: the warp
+// synchronises with __syncwarp.
 __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src));
@@ -422,7 +423,7 @@ extern "C" int rotated_iou_mask(const float* boxes, const uint8_t* valid,
                                 float thr, void* stream) {
   if (L <= 0 || C <= 0) return 0;
   const long long T = C / kTile;
-  dim3 grid((unsigned)(T * (T + 1) / 2 * (kTile / kRows)), L);
+  dim3 grid((unsigned)(T * (T + 1) / 2), L);
   // the filter holds for thr >= 0 only: a pair that cannot meet has IoU 0
   const bool filter = thr >= 0.f;
   iou_mask_kernel<<<grid, kMaskThreads, 0, (cudaStream_t)stream>>>(boxes, valid, mask, C,
