@@ -98,8 +98,14 @@ Phases, each printed on its own line:
            four realistic frames planned once (the planner's seconds
            printed); each of K7-K11 must launch
   K8 smoke, K9 fori, K9 fori4, K10 take, K11 onehot   each kernel against
-           its plain version on the same inputs, bit for bit; kernel /
-           plain / library (`torch.add`, `index_select`) / bound ms
+           its plain version on the same inputs, bit for bit, and on a
+           rerun; kernel / plain / library (`torch.add`, `index_select`) /
+           bound ms, the kernel's and the library call's ms their device
+           time from torch.profiler (`ms_source`, `library_ms_source`) with
+           back-to-back CUDA events beside them (`events_ms`); K11 also
+           prints the products it runs (modelled by `onehot_slabs_plain`,
+           per n8 tile) beside the dense product's, its bound over the
+           products it runs and the dense product's (`dense_ops_ms`)
   K7 fused_offsets   on each stage's realistic inputs (the rows the fused
            conv gathers), against its plain f32 version at 1e-4 of max
            |ref|; kernel / plain / library (bf16 `where` select + `einsum`)
@@ -232,10 +238,11 @@ def cuda_ms(fn, iters=10, warmup=2):
 
 
 def kernel_ms(fn, name, iters=50):
-    """Device time a call of fn spends in kernels whose name holds `name`,
-    from torch.profiler's CUDA activity: for a kernel shorter than its
-    wrapper's host work, back-to-back CUDA events time the host. None if
-    three profiles in a row recorded no device time."""
+    """Device time a call of fn spends in kernels whose name holds `name`
+    (every kernel it launches where name is None), from torch.profiler's
+    CUDA activity: for a kernel shorter than its wrapper's host work,
+    back-to-back CUDA events time the host. None if three profiles in a row
+    recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -244,10 +251,23 @@ def kernel_ms(fn, name, iters=50):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(getattr(e, "device_time_total", 0.0) for e in prof.key_averages() if name in e.key)
+        events = prof.key_averages()
+        if name is None:
+            us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
+        else:
+            us = sum(getattr(e, "device_time_total", 0.0) for e in events if name in e.key)
         if us > 0:
             return us / iters / 1e3
     return None
+
+
+def device_ms(fn, name, iters=50):
+    """(ms, source, events_ms): fn's device time from `kernel_ms`, or the
+    mean of back-to-back launches by CUDA events where three profiles saw
+    none, which `source` ("profiler" or "events") names; events_ms beside."""
+    events_ms = cuda_ms(fn, iters=iters)
+    ms = kernel_ms(fn, name, iters=iters)
+    return (events_ms, "events", events_ms) if ms is None else (ms, "profiler", events_ms)
 
 
 class Recorder:
@@ -455,9 +475,7 @@ def nms_checks(label, bev, v, thr, post):
     tri = torch.ones(C, C, dtype=torch.bool, device=v.device).triu(1)
     upper = int((tri[None] & v[:, None, :]).sum().item())
     clipped = int(nms.pairs_to_clip_plain(bev, v, thr).sum().item())
-    events_ms = cuda_ms(lambda: nms.rotated_iou_mask_cuda(bev, v, thr), iters=50)
-    ms = kernel_ms(lambda: nms.rotated_iou_mask_cuda(bev, v, thr), "iou_mask_kernel")
-    ms, source = (events_ms, "events") if ms is None else (ms, "profiler")
+    ms, source, events_ms = device_ms(lambda: nms.rotated_iou_mask_cuda(bev, v, thr), "iou_mask_kernel")
     plain_ms = cuda_ms(lambda: nms.pack_mask_bits(nms.iou_over_plain(bev, v, thr)), iters=3)
     io_s = (bev.numel() * 4 + v.numel() + words.numel() * 8) / HBM_BYTES_PER_S
     ops_s = clipped * IOU_OPS_PER_PAIR / F32_OPS_PER_S
@@ -478,9 +496,7 @@ def nms_checks(label, bev, v, thr, post):
         raise RuntimeError(f"K3 {label}: keep sets differ from the plain serial greedy")
     if not (torch.equal(idx_k, idx_2) and torch.equal(keep_k, keep_2)):
         raise RuntimeError(f"K3 {label}: two runs on the same inputs are not bit-identical")
-    events_ms = cuda_ms(lambda: nms.nms_greedy_select_cuda(words, v, post), iters=50)
-    ms = kernel_ms(lambda: nms.nms_greedy_select_cuda(words, v, post), "greedy_kernel")
-    ms, source = (events_ms, "events") if ms is None else (ms, "profiler")
+    ms, source, events_ms = device_ms(lambda: nms.nms_greedy_select_cuda(words, v, post), "greedy_kernel")
     plain_ms = cuda_ms(lambda: nms.greedy_select_plain(unpacked, v, post), iters=3)
     kept = keep_p.sum(1)
     # the greedy walks a lane's rows up to its post-th kept row (all C if fewer)
@@ -1243,6 +1259,8 @@ def microbench_phases(dev, table) -> None:
             raise RuntimeError(f"{st}: the fused conv differs from prod by {derr:.3e} (max |prod| {scale:.3e})")
 
     # ---- K8 smoke -------------------------------------------------------------
+    # device time (profiler) beside CUDA events: at [256, 256] back-to-back
+    # events time the wrappers' host work
     gen = torch.Generator().manual_seed(31)
     x = torch.randn(256, 256, generator=gen).mul(4).to(torch.bfloat16).to(dev)
     y = torch.randn(256, 256, generator=gen).to(torch.bfloat16).to(dev)
@@ -1250,16 +1268,18 @@ def microbench_phases(dev, table) -> None:
     torch.cuda.synchronize()
     if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
         raise RuntimeError("K8 differs from 2x + y rounded once")
-    ms = cuda_ms(lambda: fo.axpy2_cuda(x, y), iters=50)
+    ms, source, events_ms = device_ms(lambda: fo.axpy2_cuda(x, y), "axpy2_kernel")
     plain_ms = cuda_ms(lambda: fo.smoke_plain(x, y), iters=50)
-    library_ms = cuda_ms(lambda: torch.add(y, x, alpha=2), iters=50)
+    library_ms, library_source, library_events_ms = device_ms(lambda: torch.add(y, x, alpha=2), None)
     bound = 3 * x.numel() * 2 / HBM_BYTES_PER_S * 1e3
-    log("K8 smoke", shape=list(x.shape), bit_equal=True, ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
-        library_ms=f"{library_ms:.5f}", bound_ms=f"{bound:.6f}")
+    log("K8 smoke", shape=list(x.shape), bit_equal=True, ms=f"{ms:.5f}", ms_source=source,
+        events_ms=f"{events_ms:.5f}", plain_ms=f"{plain_ms:.5f}", library_ms=f"{library_ms:.5f}",
+        library_ms_source=library_source, library_events_ms=f"{library_events_ms:.5f}",
+        bound_ms=f"{bound:.6f}")
     table.append(dict(name="axpy2_bf16", route="cuda", source="unidistill_torch/csrc/fused_offsets.cu",
                       replaces="experiments/mb_pallas_fused.py:134", launches=launches["axpy2_bf16"],
-                      max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
-                      library_ms=library_ms))
+                      max_abs_err=0.0, ms=ms, ms_source=source, plain_ms=plain_ms, bound_ms=bound,
+                      bound_by="bytes", library_ms=library_ms, library_ms_source=library_source))
 
     # ---- K9-K11: the band gathers ------------------------------------------------
     S, W, R, band = mb_gather_pallas.S, mb_gather_pallas.W, mb_gather_pallas.R, mb_gather_pallas.BAND
@@ -1270,33 +1290,49 @@ def microbench_phases(dev, table) -> None:
     # output written once, the indices and band starts read once
     n_src = int(src.unique().numel())
     nbytes = (n_src + ref.shape[0]) * W * 2 + idx.numel() * 4 + w.numel() * 4
-    for label, key, fn, replaces in (
-            ("K9 fori", "band_gather_fori", lambda: bg.band_gather_fori(tab, idx, w, R, band, unroll=1),
-             "experiments/mb_gather_pallas.py:140"),
-            ("K9 fori4", "band_gather_fori4", lambda: bg.band_gather_fori(tab, idx, w, R, band, unroll=4),
-             "experiments/mb_gather_pallas.py:140"),
-            ("K10 take", "band_gather_take", lambda: bg.band_gather_take(tab, idx, w, R, band),
-             "experiments/mb_gather_pallas.py:160"),
-            ("K11 onehot", "band_gather_onehot", lambda: bg.band_gather_onehot(tab, idx, w, R, band),
-             "experiments/mb_gather_pallas.py:184")):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    library_ms, library_source, library_events_ms = device_ms(lambda: tab.index_select(0, src), None)
+    # K11's products, per n8 tile of columns: the (m16 group, k16 slab) pairs
+    # it runs (modelled), and the dense product's ceil(S / 16) x band / 16
+    pairs = int(bg.onehot_slabs_plain(idx, w, R, band)[1].numel())
+    dense_pairs = -(-S // 16) * (band // 16)
+    mma_ops = 2 * 16 * 8 * 16  # one m16n8k16
+    for label, key, kname, fn, replaces in (
+            ("K9 fori", "band_gather_fori", "band_gather_fori_kernel<1>",
+             lambda: bg.band_gather_fori(tab, idx, w, R, band, unroll=1), "experiments/mb_gather_pallas.py:140"),
+            ("K9 fori4", "band_gather_fori4", "band_gather_fori_kernel<4>",
+             lambda: bg.band_gather_fori(tab, idx, w, R, band, unroll=4), "experiments/mb_gather_pallas.py:140"),
+            ("K10 take", "band_gather_take", "band_gather_take_kernel",
+             lambda: bg.band_gather_take(tab, idx, w, R, band), "experiments/mb_gather_pallas.py:160"),
+            ("K11 onehot", "band_gather_onehot", "band_gather_onehot_kernel",
+             lambda: bg.band_gather_onehot(tab, idx, w, R, band), "experiments/mb_gather_pallas.py:184")):
         got = fn()
         torch.cuda.synchronize()
         if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
             bad = int((got != ref).any(1).sum().item())
             raise RuntimeError(f"{label}: {bad} rows differ from the plain gather")
-        ms = cuda_ms(fn)
+        if not torch.equal(fn().view(torch.int16), got.view(torch.int16)):
+            raise RuntimeError(f"{label}: two runs on the same inputs are not bit-identical")
+        ms, source, events_ms = device_ms(fn, kname)
         plain_ms = cuda_ms(lambda: bg.band_gather_plain(tab, idx, w, R, band))
-        library_ms = cuda_ms(lambda: tab.index_select(0, src))
-        ops = 2 * S * band * W if key == "band_gather_onehot" else 0
-        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
-        log(label, rows=S, W=W, R=R, band=band, distinct_source_rows=n_src, bit_equal=True, ms=f"{ms:.4f}",
-            ns_per_row=f"{ms / S * 1e6:.3f}", plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
-            bound_ms=f"{max(bytes_ms, ops_ms):.4f}", bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            bytes_ms=f"{bytes_ms:.4f}", ops_ms=f"{ops_ms:.4f}")
+        extra = {}
+        ops = 0
+        if key == "band_gather_onehot":
+            ops = pairs * (W // 8) * mma_ops
+            extra = dict(products_per_n8_tile=pairs, dense_products_per_n8_tile=dense_pairs,
+                         n8_tiles=W // 8, products_per_group=f"{pairs / -(-S // 16):.3f}",
+                         dense_ops_ms=f"{2 * S * band * W / BF16_OPS_PER_S * 1e3:.4f}")
+        ops_ms = ops / BF16_OPS_PER_S * 1e3
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        log(label, rows=S, W=W, R=R, band=band, distinct_source_rows=n_src, bit_equal=True, bit_identical=True,
+            ms=f"{ms:.4f}", ms_source=source, events_ms=f"{events_ms:.4f}", ns_per_row=f"{ms / S * 1e6:.3f}",
+            plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}", library_ms_source=library_source,
+            library_events_ms=f"{library_events_ms:.4f}", bound_ms=f"{max(bytes_ms, ops_ms):.4f}",
+            bound_by=bound_by, bytes_ms=f"{bytes_ms:.4f}", ops_ms=f"{ops_ms:.4f}", **extra)
         table.append(dict(name=key, route="cuda", source="unidistill_torch/csrc/band_gather.cu",
-                          replaces=replaces, launches=launches[key], max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                          bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                          library_ms=library_ms))
+                          replaces=replaces, launches=launches[key], max_abs_err=0.0, ms=ms, ms_source=source,
+                          plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms), bound_by=bound_by,
+                          library_ms=library_ms, library_ms_source=library_source))
     del tab, idx, w, ref, src, got
     torch.cuda.empty_cache()
 

@@ -46,7 +46,8 @@ kernels sum in float32). The microbenchmark kernels: K7 (fused select +
 products) at 1e-5 of max |ref| (exact bf16 products summed in f32 in
 another order) and bit-equal on a rerun; K8 (2x + y in bf16) and the band
 gathers K9 (unroll 1 and 4), K10 and K11 bit-equal to their plain versions
-(each output of K11 is a sum with one nonzero term).
+(each output of K11 is a sum with one nonzero term), K11 also on the
+layouts of `mb_gather_pallas.band_layout` and bit-identical on a rerun.
 """
 import numpy as np
 import pytest
@@ -868,6 +869,45 @@ def test_band_gather_kernels_are_bit_exact(cuda_device, variant, S, W, R, band, 
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
     assert torch.equal(fn(tab, idx, w, R, band), got)
+
+
+# K11 on layouts that stress its ordering by slab (`mb_gather_pallas.band_layout`),
+# small and at the published size (S 65536, W 640, R 2048, band 4096; R 128
+# for "uniform", so that band >> R); "uniform" with a band of 300032 rows
+# takes ten windows of the sort (2048 slabs a window)
+K11_LAYOUTS = [
+    ("one_position", 1000, 64, 128, 256), ("edges", 1000, 64, 128, 256), ("uniform", 1024, 32, 128, 1024),
+    ("ragged", 1000, 200, 256, 512), ("uniform", 512, 8, 256, 300032),
+    ("published", 65536, 640, 2048, 4096), ("one_position", 65536, 640, 2048, 4096),
+    ("edges", 65536, 640, 2048, 4096), ("uniform", 65536, 640, 128, 4096), ("ragged", 64531, 632, 2048, 4096),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,S,W,R,band", K11_LAYOUTS,
+                         ids=[f"{k}-S{s}-W{w}-R{r}-band{b}" for k, s, w, r, b in K11_LAYOUTS])
+def test_band_gather_onehot_on_layouts(cuda_device, kind, S, W, R, band):
+    """K11 equal to the plain gather bit for bit, and to itself on a rerun."""
+    from unidistill_torch.experiments.mb_gather_pallas import band_layout
+    tab, idx, w = band_layout(kind, S, W, R, band, seed=S + band, device=cuda_device)
+    got = band_gather.band_gather_onehot(tab, idx, w, R, band)
+    ref = band_gather.band_gather_plain(tab, idx, w, R, band)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+    assert torch.equal(band_gather.band_gather_onehot(tab, idx, w, R, band).view(torch.int16), got.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_band_gather_onehot_on_random_indices_at_the_published_size(cuda_device):
+    """`_band_case`'s indices (30% anywhere in the table) at S 65536, W 640,
+    R 2048, band 4096: equal to the plain gather, reruns bit-identical."""
+    tab, idx, w = _band_case(cuda_device, 65536, 640, 2048, 4096, 70000, seed=13)
+    got = band_gather.band_gather_onehot(tab, idx, w, 2048, 4096)
+    ref = band_gather.band_gather_plain(tab, idx, w, 2048, 4096)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+    assert torch.equal(band_gather.band_gather_onehot(tab, idx, w, 2048, 4096).view(torch.int16),
+                       got.view(torch.int16))
 
 
 @pytest.mark.cuda

@@ -8,8 +8,9 @@ interpret mode. Inputs come from numpy seeds.
 Tolerances: the port's voxeliser (`ops/voxelize.py` on a host frame)
 against the JAX host voxeliser's coordinates exactly and its features
 within 1e-6 (float32 sums in another order); the planner's tables, the
-realistic inputs, the band gathers (T6 unroll 1 and 4, T7, T8) and the
-smoke kernel (T5) exactly; `fused_offsets` (T4) within 1e-5 of max |ref|
+realistic inputs, the band gathers (T6 unroll 1 and 4, T7, T8; T8 also
+against K11's skip product, `onehot_skip_plain`) and the smoke kernel (T5)
+exactly; `fused_offsets` (T4) within 1e-5 of max |ref|
 (the same exact bf16 products summed in f32 in another order); the chunked
 subm conv in float32 within 1e-5 of max |ref| (sums in another order) and
 in bfloat16 within 2e-2 of max |ref| (a sum in another order may flip a
@@ -204,6 +205,9 @@ def test_band_gathers_match_pallas(S, W, R, band, monkeypatch):
             got = _bf16_bits(make()(jtab, jidx, jw))
             np.testing.assert_array_equal(got, ref, err_msg=f"pallas {name}")
             np.testing.assert_array_equal(_bf16_bits(ours[name]), got, err_msg=name)
+            if name == "onehot":  # K11's skip product: only the (group, slab) products it runs
+                np.testing.assert_array_equal(_bf16_bits(bg.onehot_skip_plain(tab, idx, w, R, band)), got,
+                                              err_msg="onehot skip product")
 
 
 def test_band_gather_clips_into_the_band():

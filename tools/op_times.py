@@ -1,6 +1,6 @@
 """Device time of ops of a source tree on the card, to compare two commits
-in one call: run `k5`, `voxelize` and `nms` once for each tree, in the
-order parent, change, change, parent.
+in one call: run `k5`, `voxelize`, `nms` and `band` once for each tree, in
+the order parent, change, change, parent.
 
     python tools/op_times.py cells OUT.pt
     python tools/op_times.py k5 TREE CELLS.pt
@@ -8,6 +8,9 @@ order parent, change, change, parent.
     python tools/op_times.py predict TREE lidar|fusion
     python tools/op_times.py nms_cells OUT.pt
     python tools/op_times.py nms TREE NMS_CELLS.pt
+    python tools/op_times.py band_cells OUT.pt
+    python tools/op_times.py band TREE BAND_CELLS.pt
+    python tools/op_times.py k8 TREE
 
 `cells` writes, with this tree's `serving.synthetic.nuscenes_cells`, the
 flat BEV cells of the full-width camera model (B 4, six cameras, D 112,
@@ -45,6 +48,20 @@ and the kernel's own device time from torch.profiler (`*_kernel_ms`, null
 if three profiles in a row recorded none), after
 holding K2's words to TREE's plain mask outside a 1e-5 band of the
 threshold and K3's keep sets to TREE's plain greedy.
+
+`band_cells` writes, with this tree's `mb_gather_pallas.band_layout`, the
+band gather's layouts at the published size (S 65536, W 640, R 2048, band
+4096): published, one_position, edges, uniform (R 128) and ragged (S
+64531, W 632), with the products K11 runs on each (`onehot_slabs_plain`).
+`band` times TREE's K11 (`band_gather_onehot`) on each, after holding it to
+TREE's plain gather bit for bit: the kernel's device time from
+torch.profiler (`kernel_ms`, null if three profiles saw none) and the mean
+of 50 back-to-back launches by CUDA events.
+
+`k8` times TREE's K8 (`axpy2_cuda`, 2x + y in bf16 at [256, 256], as
+`chip_smoke.py` [K8 smoke]) and `torch.add(y, x, alpha=2)` in turns, four
+rounds: each one's device time from torch.profiler and the mean of 50
+back-to-back calls by CUDA events, after holding K8 to 2x + y rounded once.
 """
 import dataclasses
 import json
@@ -79,9 +96,10 @@ def cuda_ms(fn, iters):
 
 
 def kernel_ms(fn, iters, name):
-    """Device time of the kernels whose name holds `name`, per call of fn,
-    from torch.profiler's CUDA activity (no host gaps between launches);
-    None if three profiles in a row recorded none."""
+    """Device time of the kernels whose name holds `name` (of every kernel
+    where name is None), per call of fn, from torch.profiler's CUDA
+    activity (no host gaps between launches); None if three profiles in a
+    row recorded none."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -90,7 +108,11 @@ def kernel_ms(fn, iters, name):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(getattr(e, "device_time_total", 0.0) for e in prof.key_averages() if name in e.key)
+        events = prof.key_averages()
+        if name is None:
+            us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
+        else:
+            us = sum(getattr(e, "device_time_total", 0.0) for e in events if name in e.key)
         if us > 0:
             return us / iters / 1e3
     return None
@@ -251,9 +273,62 @@ def nms(tree, cells_file):
                               differing_bits=int(diff.sum()), kept=int(keep[1].sum()))), flush=True)
 
 
+BAND_LAYOUTS = {"published": (65536, 640, 2048, 4096), "one_position": (65536, 640, 2048, 4096),
+                "edges": (65536, 640, 2048, 4096), "uniform": (65536, 640, 128, 4096),
+                "ragged": (64531, 632, 2048, 4096)}
+
+
+def band_cells(out):
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from unidistill_torch.experiments.mb_gather_pallas import band_layout
+    from unidistill_torch.ops.band_gather import onehot_slabs_plain
+    saved = {}
+    for kind, (S, W, R, band) in BAND_LAYOUTS.items():
+        tab, idx, w = band_layout(kind, S, W, R, band, seed=0)
+        pairs = int(onehot_slabs_plain(idx, w, R, band)[1].numel())
+        saved[kind] = (tab, idx, w, R, band)
+        print(json.dumps(dict(layout=kind, S=S, W=W, R=R, band=band, products_per_n8_tile=pairs,
+                              dense_products_per_n8_tile=-(-S // 16) * (band // 16))), flush=True)
+    torch.save(saved, out)
+
+
+def band(tree, cells_file):
+    sys.path.insert(0, tree)
+    from unidistill_torch.ops import band_gather as bg
+    for kind, (tab, idx, w, R, nb) in torch.load(cells_file).items():
+        tab, idx, w = tab.cuda(), idx.cuda(), w.cuda()
+        fn = lambda: bg.band_gather_onehot(tab, idx, w, R, nb)
+        got = fn()
+        if not torch.equal(got.view(torch.int16), bg.band_gather_plain(tab, idx, w, R, nb).view(torch.int16)):
+            raise RuntimeError(f"K11 on {kind}: differs from the plain gather")
+        k11_ms, _ = cuda_ms(fn, 50)
+        k11_kernel_ms = kernel_ms(fn, 50, "band_gather_onehot_kernel")
+        print(json.dumps(dict(tree=tree, layout=kind, k11_ms=round(k11_ms, 5),
+                              k11_kernel_ms=None if k11_kernel_ms is None else round(k11_kernel_ms, 5))),
+              flush=True)
+        del tab, idx, w, got
+        torch.cuda.empty_cache()
+
+
+def k8(tree):
+    sys.path.insert(0, tree)
+    from unidistill_torch.ops import fused_offsets as fo
+    gen = torch.Generator().manual_seed(31)
+    x = torch.randn(256, 256, generator=gen).mul(4).to(torch.bfloat16).cuda()
+    y = torch.randn(256, 256, generator=gen).to(torch.bfloat16).cuda()
+    if not torch.equal(fo.axpy2_cuda(x, y).view(torch.int16), fo.smoke_plain(x, y).view(torch.int16)):
+        raise RuntimeError("K8 differs from 2x + y rounded once")
+    calls = {"K8": (lambda: fo.axpy2_cuda(x, y), "axpy2_kernel"), "torch.add": (lambda: torch.add(y, x, alpha=2), None)}
+    for rnd in range(4):
+        for op, (fn, name) in calls.items():
+            dev_ms = kernel_ms(fn, 50, name)
+            print(json.dumps(dict(tree=tree, op=op, round=rnd, events_ms=round(cuda_ms(fn, 50)[0], 5),
+                                  kernel_ms=None if dev_ms is None else round(dev_ms, 5))), flush=True)
+
+
 if __name__ == "__main__":
     if not torch.cuda.is_available():
         sys.exit("op_times: needs a CUDA device")
     print(_card(), flush=True)
     {"cells": cells, "k5": k5, "voxelize": voxelize, "predict": predict, "nms_cells": nms_cells,
-     "nms": nms}[sys.argv[1]](*sys.argv[2:])
+     "nms": nms, "band_cells": band_cells, "band": band, "k8": k8}[sys.argv[1]](*sys.argv[2:])

@@ -295,12 +295,17 @@ int fused_offsets(const void* g, const void* oh, const void* w8, void* out, int 
   return cudaGetLastError();
 }
 
-// out = 2x + y, n bf16 values; vec: all three pointers 16-byte aligned
+// out = 2x + y, n bf16 values; vec: all three pointers 16-byte aligned.
+// A thread a 16-byte vector (vec) or a value, in blocks of 64 threads, so
+// that a small n still spreads over many SMs (65 536 values: 128 blocks);
+// the tail of n % 8 values takes the first threads again.
 int axpy2_bf16(const void* x, const void* y, void* out, long long n, int vec, void* stream) {
   if (n <= 0) return cudaSuccess;
-  long long blocks = (n / 8 + 255) / 256 + 1;
+  constexpr int kAxpyThreads = 64;
+  long long blocks = ((vec ? n / 8 : n) + kAxpyThreads - 1) / kAxpyThreads;
+  if (blocks < 1) blocks = 1;
   if (blocks > 65536) blocks = 65536;
-  axpy2_kernel<<<(unsigned)blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  axpy2_kernel<<<(unsigned)blocks, kAxpyThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(y),
       static_cast<__nv_bfloat16*>(out), n, vec);
   return cudaGetLastError();

@@ -42,8 +42,20 @@ def make_inputs(seed: int = 0, S: int = S, W: int = W, R: int = R, band: int = B
     """(tab [S, W] bf16, idx [S] int32, w [S / R] int32): banded, roughly
     monotone neighbour indices idx[i] ~ i + noise, each block's indices
     clipped into its band; the JAX script's draws in its order."""
-    nblk = S // R
     rng = np.random.default_rng(seed)
+    idx, w = _draw_indices(rng, S, R, band)
+    tab = torch.from_numpy(rng.standard_normal((S, W)) * 0.1).to(torch.bfloat16)
+    return tab.to(device), torch.from_numpy(idx).to(device), torch.from_numpy(w).to(device)
+
+
+def make_indices(seed: int = 0, S: int = S, R: int = R, band: int = BAND):
+    """make_inputs' (idx, w) without drawing the table."""
+    idx, w = _draw_indices(np.random.default_rng(seed), S, R, band)
+    return torch.from_numpy(idx), torch.from_numpy(w)
+
+
+def _draw_indices(rng, S, R, band):
+    nblk = S // R
     idx = np.arange(S) + rng.integers(-1500, 1500, size=S)
     idx = np.clip(idx, 0, S - 1).astype(np.int32)
     w = np.zeros(nblk, np.int32)
@@ -53,8 +65,42 @@ def make_inputs(seed: int = 0, S: int = S, W: int = W, R: int = R, band: int = B
         lo = min(lo, S - band)
         w[j] = lo
         np.clip(blk, lo, lo + band - 1, out=blk)
-    tab = torch.from_numpy(rng.standard_normal((S, W)) * 0.1).to(torch.bfloat16)
-    return tab.to(device), torch.from_numpy(idx).to(device), torch.from_numpy(w).to(device)
+    return idx, w
+
+
+LAYOUTS = ("published", "one_position", "edges", "uniform", "ragged")
+
+
+def band_layout(kind: str, S: int = S, W: int = W, R: int = R, band: int = BAND, seed: int = 0,
+                device="cpu"):
+    """(tab, idx, w) of one layout of the band positions, for K11's ordering:
+      published     `make_inputs` (S % R == 0);
+      one_position  every row of a block at one band position;
+      edges         every row clipped to its band's first or last position;
+      uniform       positions uniform over the band (band >> R spreads a
+                    group over up to 16 slabs);
+      ragged        `make_inputs`' draws at ceil(S / R) R rows and W
+                    rounded up to 16, cut to S rows and W columns.
+    The other layouts draw w uniformly, a table of max(S, band) rows."""
+    if kind == "published":
+        return make_inputs(seed, S, W, R, band, device)
+    if kind == "ragged":
+        tab, idx, w = make_inputs(seed, -(-S // R) * R, -(-W // 16) * 16, R, band)
+        return tab[:, :W].contiguous().to(device), idx[:S].to(device), w.to(device)
+    rng = np.random.default_rng(seed)
+    n_tab, nblk = max(S, band), -(-S // R)
+    w = rng.integers(0, n_tab - band + 1, nblk).astype(np.int32)
+    lo = np.repeat(w, R)[:S]
+    if kind == "one_position":
+        idx = lo + np.repeat(rng.integers(0, band, nblk), R)[:S]
+    elif kind == "edges":
+        idx = np.where(rng.random(S) < 0.5, -1, n_tab)
+    elif kind == "uniform":
+        idx = lo + rng.integers(0, band, S)
+    else:
+        raise ValueError(f"band_layout: no layout {kind!r} (one of {LAYOUTS})")
+    tab = torch.from_numpy(rng.standard_normal((n_tab, W)) * 0.1).to(torch.bfloat16)
+    return tab.to(device), torch.from_numpy(idx.astype(np.int32)).to(device), torch.from_numpy(w).to(device)
 
 
 def variants(R: int, band: int):

@@ -14,11 +14,16 @@ of `band` table rows. Designs (`csrc/band_gather.cu`), each bit-exact:
                                             (K9, K10: rows of a multiple
                                             of 16 bytes)
   band_gather_onehot                   K11  onehot[R, band] @ band on the
-                                            tensor cores (bf16 tables;
-                                            R % 128, band % 32, W % 8 == 0)
+                                            tensor cores, only the k16
+                                            slabs where a row group's
+                                            one-hot is not all zero (bf16
+                                            tables; R % 128, band % 32,
+                                            W % 8 == 0)
 
 Each launches its kernel for CUDA tensors and runs `band_gather_plain`,
 the same function in plain PyTorch, for CPU tensors.
+`onehot_slabs_plain` models which products K11 runs, and
+`onehot_skip_plain` runs just those products in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -26,8 +31,8 @@ import torch
 
 from unidistill_torch.kernels import build
 
-ONEHOT_ROWS = 128  # K11's rows per block: R must be a multiple
-ONEHOT_BAND_STEP = 32  # K11's band rows per tile: band must be a multiple
+ONEHOT_ROWS = 128  # K11's launch contract: R a multiple of this
+ONEHOT_BAND_STEP = 32  # and band a multiple of this
 
 
 def band_source_rows(idx: torch.Tensor, w: torch.Tensor, R: int, band: int) -> torch.Tensor:
@@ -40,6 +45,54 @@ def band_gather_plain(tab: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, R: 
                       band: int) -> torch.Tensor:
     """Plain version of K9-K11: index_select at the clipped rows."""
     return tab.index_select(0, band_source_rows(idx, w, R, band).long())
+
+
+ONEHOT_SLAB = 16  # K11's k16 step: band rows a slab, rows an m16 group
+
+
+def onehot_slabs_plain(idx: torch.Tensor, w: torch.Tensor, R: int, band: int):
+    """K11's order and products. K11 orders each R-row block's rows by slab
+    (band position // 16) and cuts the order into m16 groups of 16
+    consecutive rows from the block's start; a group runs one product a
+    distinct slab of its rows (per n8 tile of columns).
+
+    Returns (order, groups, slabs): order [S] int64 the rows in that order,
+    block j at positions [j R, j R + its rows), equal slabs by row number
+    as in the kernel's stable sort; groups, slabs [P] int64 the (m16 group,
+    slab) products, group g holding positions [16 g, 16 g + 16). The dense
+    one-hot product runs ceil(S / 16) x band / 16 of them."""
+    if R % ONEHOT_SLAB or band % ONEHOT_SLAB:
+        raise ValueError(f"onehot_slabs_plain: R={R} and band={band} must be multiples of {ONEHOT_SLAB}")
+    S = idx.shape[0]
+    nslab = band // ONEHOT_SLAB
+    block = torch.arange(S, device=idx.device) // R
+    slab = (band_source_rows(idx, w, R, band) - w.repeat_interleave(R)[:S]).long() // ONEHOT_SLAB
+    order = torch.sort(block * nslab + slab, stable=True).indices
+    pairs = torch.unique(torch.arange(S, device=idx.device) // ONEHOT_SLAB * nslab + slab[order])
+    return order, pairs // nslab, pairs % nslab
+
+
+def onehot_skip_plain(tab: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, R: int,
+                      band: int) -> torch.Tensor:
+    """K11's arithmetic in plain PyTorch: only the (group, slab) products of
+    `onehot_slabs_plain`, each a [16, 16] one-hot by the slab's [16, W]
+    band rows in f32, summed per row in f32 and rounded once to bf16."""
+    order, groups, slabs = onehot_slabs_plain(idx, w, R, band)
+    S, n = idx.shape[0], ONEHOT_SLAB
+    lo = w.repeat_interleave(R)[:S].long()
+    loc = band_source_rows(idx, w, R, band).long() - lo
+    rows = torch.full((-(-S // n) * n,), -1, dtype=torch.long, device=idx.device)
+    rows[:S] = order
+    rows = rows.view(-1, n)[groups]  # [P, 16] the groups' rows, -1 past the end
+    ok = rows >= 0
+    start = n * slabs[:, None]
+    onehot = (loc[rows.clamp_min(0)] - start)[..., None] == torch.arange(n, device=idx.device)
+    onehot &= ok[..., None]
+    slab_rows = lo[rows[:, 0]][:, None] + start + torch.arange(n, device=idx.device)
+    prod = torch.bmm(onehot.float(), tab.float()[slab_rows])  # [P, 16, W]
+    out = torch.zeros(S, tab.shape[1], dtype=torch.float32, device=tab.device)
+    out.index_add_(0, rows[ok], prod[ok])
+    return out.to(tab.dtype)
 
 
 def _check(tab, idx, w, R, band, onehot=False):
