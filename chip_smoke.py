@@ -99,10 +99,15 @@ Phases, each printed on its own line:
            printed); each of K7-K11 must launch
   K8 smoke, K9 fori, K9 fori4, K10 take, K11 onehot   each kernel against
            its plain version on the same inputs, bit for bit, and on a
-           rerun; kernel / plain / library (`torch.add`, `index_select`) /
-           bound ms, the kernel's and the library call's ms their device
-           time from torch.profiler (`ms_source`, `library_ms_source`) with
-           back-to-back CUDA events beside them (`events_ms`); K11 also
+           rerun (K9-K11 with each output in a block of the pool just
+           filled with NaN, `harness.poisoned_call`, so that rows a kernel
+           leaves unwritten cannot hold an earlier call's answer); kernel /
+           plain / library (`torch.add`, `index_select`) / bound ms, the
+           kernel's and the library call's ms their device time from
+           torch.profiler (`ms_source`, `library_ms_source`; "profiler:N/M"
+           where the profile kept N of its M kernel records: the mean over
+           the N, `harness.device_ms`) with back-to-back CUDA events beside
+           them (`events_ms`); K11 also
            prints the products it runs (modelled by `onehot_slabs_plain`,
            per n8 tile) beside the dense product's, its bound over the
            products it runs and the dense product's (`dense_ops_ms`)
@@ -235,39 +240,6 @@ def cuda_ms(fn, iters=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def kernel_ms(fn, name, iters=50):
-    """Device time a call of fn spends in kernels whose name holds `name`
-    (every kernel it launches where name is None), from torch.profiler's
-    CUDA activity: for a kernel shorter than its wrapper's host work,
-    back-to-back CUDA events time the host. None if three profiles in a row
-    recorded no device time."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):  # one profile in a dozen came back without the kernel's activity on the H100
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        if name is None:
-            us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
-        else:
-            us = sum(getattr(e, "device_time_total", 0.0) for e in events if name in e.key)
-        if us > 0:
-            return us / iters / 1e3
-    return None
-
-
-def device_ms(fn, name, iters=50):
-    """(ms, source, events_ms): fn's device time from `kernel_ms`, or the
-    mean of back-to-back launches by CUDA events where three profiles saw
-    none, which `source` ("profiler" or "events") names; events_ms beside."""
-    events_ms = cuda_ms(fn, iters=iters)
-    ms = kernel_ms(fn, name, iters=iters)
-    return (events_ms, "events", events_ms) if ms is None else (ms, "profiler", events_ms)
 
 
 class Recorder:
@@ -459,6 +431,7 @@ def nms_checks(label, bev, v, thr, post):
     profiles recorded none, the mean of back-to-back launches by CUDA
     events (host work included); `ms_source` says which. Returns the two
     kernels' table fields."""
+    from unidistill_torch.experiments.harness import device_ms
     from unidistill_torch.ops import nms
     L, C = v.shape
     words = nms.rotated_iou_mask_cuda(bev, v, thr)
@@ -1221,6 +1194,7 @@ def microbench_phases(dev, table) -> None:
     published stage sizes), then K7-K11 against their plain versions."""
     from unidistill_torch.configs.nuscenes import lidar_exp
     from unidistill_torch.experiments import mb_gather_pallas, mb_pallas_fused
+    from unidistill_torch.experiments.harness import device_ms, poisoned_call
     from unidistill_torch.experiments.realistic import realistic_inputs
     from unidistill_torch.kernels import build
     from unidistill_torch.ops import band_gather as bg
@@ -1296,6 +1270,7 @@ def microbench_phases(dev, table) -> None:
     # it runs (modelled), and the dense product's ceil(S / 16) x band / 16
     pairs = int(bg.onehot_slabs_plain(idx, w, R, band)[1].numel())
     dense_pairs = -(-S // 16) * (band // 16)
+    nbytes_out = ref.numel() * ref.element_size()
     mma_ops = 2 * 16 * 8 * 16  # one m16n8k16
     for label, key, kname, fn, replaces in (
             ("K9 fori", "band_gather_fori", "band_gather_fori_kernel<1>",
@@ -1306,12 +1281,13 @@ def microbench_phases(dev, table) -> None:
              lambda: bg.band_gather_take(tab, idx, w, R, band), "experiments/mb_gather_pallas.py:160"),
             ("K11 onehot", "band_gather_onehot", "band_gather_onehot_kernel",
              lambda: bg.band_gather_onehot(tab, idx, w, R, band), "experiments/mb_gather_pallas.py:184")):
-        got = fn()
-        torch.cuda.synchronize()
+        # each output in a block just filled with NaN: index_select above
+        # left the right answer in same-size blocks of the pool
+        got = poisoned_call(fn, nbytes_out)
         if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
-            bad = int((got != ref).any(1).sum().item())
+            bad = int((got.view(torch.int16) != ref.view(torch.int16)).any(1).sum().item())
             raise RuntimeError(f"{label}: {bad} rows differ from the plain gather")
-        if not torch.equal(fn().view(torch.int16), got.view(torch.int16)):
+        if not torch.equal(poisoned_call(fn, nbytes_out).view(torch.int16), got.view(torch.int16)):
             raise RuntimeError(f"{label}: two runs on the same inputs are not bit-identical")
         ms, source, events_ms = device_ms(fn, kname)
         plain_ms = cuda_ms(lambda: bg.band_gather_plain(tab, idx, w, R, band))

@@ -17,19 +17,18 @@ the flags of `kernels/build.py` into build/band_variants/:
                from global memory (L2) as bf16 pairs of two band rows;
   whole_slabs  every row of a staged slab read, not only the band rows
                that the warp's rows sit on;
-  slices2, slices_all  a block walks 2 column slices of 128 (all of them)
-               after its one sort, not 1: fewer sorts, fewer and longer
-               blocks;
-and one that skips K11's work, to show where its time goes (its output is
-not checked): sort_only (the sort, no products).
-Each other variant is held to the plain gather bit for bit on every
-layout, in a process of its own (one kernel library a process). Prints ptxas's
-registers, spills and shared memory, then one JSON line per (variant,
-layout): `ms`, the device time of every kernel a call launches (the
-plan's too) from torch.profiler (`op_times.kernel_ms`, null if the
-profiler never saw one), `k11_ms` the product kernel's alone, and
-`events_ms`, the mean of 50 back-to-back calls by CUDA events (host work
-included).
+and one that skips K11's work, to show where its time goes: sort_only (the
+sort, no products; its output is wrong, and `bit_equal` false shows that
+the check catches a kernel that leaves rows unwritten).
+Each variant runs on every layout in a process of its own (one kernel
+library a process), its output in a block just filled with NaN
+(`harness.poisoned_call`), and each but sort_only must equal the plain
+gather bit for bit. Prints ptxas's registers, spills and shared memory,
+then one JSON line per (variant, layout): `bit_equal`, `ms`, the device
+time of every kernel a call launches (the plan's too) from torch.profiler
+(`harness.kernel_ms`, null if the profiler never saw one), `k11_ms` the
+product kernel's alone, and `events_ms`, the mean of 50 back-to-back calls
+by CUDA events (host work included).
 """
 import ctypes
 import json
@@ -40,8 +39,8 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path[:0] = [str(ROOT), str(ROOT / "tools")]
-from op_times import cuda_ms, kernel_ms  # noqa: E402
+sys.path.insert(0, str(ROOT))
+from unidistill_torch.experiments.harness import kernel_ms, poisoned_call, timed_ms  # noqa: E402
 from unidistill_torch.kernels import build  # noqa: E402
 from unidistill_torch.ops import band_gather as bg  # noqa: E402
 
@@ -74,14 +73,11 @@ B_FROM_L2 = """        {
           b[3] = cn + 8 < W ? pair(at + 8LL * W + 8) : 0u;
         }
 """
-SLICES = "constexpr int kOSlices = 1;"
 VARIANTS = {
     "shipped": [],
     "plan_launch": [("sort", None)],
     "b_from_l2": [(STAGE_COPIES, ""), (B_FROM_SHARED, B_FROM_L2)],
     "whole_slabs": [("      const bool ok = (used >> r & 1u) && n0 + c < W;", "      const bool ok = n0 + c < W;")],
-    "slices2": [(SLICES, "constexpr int kOSlices = 2;")],
-    "slices_all": [(SLICES, "constexpr int kOSlices = 64;")],
     "sort_only": [("  if (q0 >= n_mine) return;", "  if (q0 >= 0) return;")],
 }
 DIAGNOSTIC = ("sort_only",)
@@ -154,14 +150,14 @@ def time_variant(name, cells_file):
     for layout, (tab, idx, w, R, band) in torch.load(cells_file).items():
         tab, idx, w = tab.cuda(), idx.cuda(), w.cuda()
         fn = lambda: call(tab, idx, w, R, band)
-        got = fn()
-        if name not in DIAGNOSTIC and not torch.equal(got.view(torch.int16),
-                                                      bg.band_gather_plain(tab, idx, w, R, band).view(torch.int16)):
+        got = poisoned_call(fn, idx.shape[0] * tab.shape[1] * 2)
+        equal = torch.equal(got.view(torch.int16), bg.band_gather_plain(tab, idx, w, R, band).view(torch.int16))
+        if name not in DIAGNOSTIC and not equal:
             raise RuntimeError(f"{name} on {layout}: differs from the plain gather")
-        ms, k11_ms = kernel_ms(fn, 50, None), kernel_ms(fn, 50, "band_gather_onehot_kernel")
-        print(json.dumps(dict(variant=name, layout=layout, ms=None if ms is None else round(ms, 5),
+        ms, k11_ms = kernel_ms(fn, None), kernel_ms(fn, "band_gather_onehot_kernel")
+        print(json.dumps(dict(variant=name, layout=layout, bit_equal=equal, ms=None if ms is None else round(ms, 5),
                               k11_ms=None if k11_ms is None else round(k11_ms, 5),
-                              events_ms=round(cuda_ms(fn, 50)[0], 5))), flush=True)
+                              events_ms=round(timed_ms(fn, tab.device, iters=50, reps=1), 5))), flush=True)
         del tab, idx, w, got
         torch.cuda.empty_cache()
 

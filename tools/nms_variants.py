@@ -29,7 +29,7 @@ outside `K2_THR_BAND` of the threshold, and every variant's K3 against the
 plain greedy over the words its K2 gave, in a process of its own (one
 kernel library a process). Prints ptxas's registers and spills, then one
 JSON line per (variant, layout): each kernel's device time from
-torch.profiler (`op_times.kernel_ms`, null if the profiler never saw the
+torch.profiler (`harness.kernel_ms`, null if the profiler never saw the
 kernel) and the mean of 50 back-to-back launches by CUDA events (for K3
 that is the ctypes wrapper's host time).
 """
@@ -42,8 +42,8 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path[:0] = [str(ROOT), str(ROOT / "tools")]
-from op_times import cuda_ms, kernel_ms  # noqa: E402
+sys.path.insert(0, str(ROOT))
+from unidistill_torch.experiments.harness import kernel_ms, timed_ms  # noqa: E402
 from unidistill_torch.kernels import build  # noqa: E402
 from unidistill_torch.ops import nms  # noqa: E402
 
@@ -113,12 +113,12 @@ def time_variant(name, cells_file):
             raise RuntimeError(f"{name} on {layout}: K3's keep sets differ from the plain greedy")
         k2 = lambda: nms.rotated_iou_mask_cuda(bev, v, thr)
         k3 = lambda: nms.nms_greedy_select_cuda(words, v, post)
-        k2_ms, k3_ms = kernel_ms(k2, 50, "iou_mask_kernel"), kernel_ms(k3, 50, "greedy_kernel")
+        k2_ms, k3_ms = kernel_ms(k2, "iou_mask_kernel"), kernel_ms(k3, "greedy_kernel")
         print(json.dumps(dict(variant=name, layout=layout,
                               k2_ms=None if k2_ms is None else round(k2_ms, 5),
                               k3_ms=None if k3_ms is None else round(k3_ms, 5),
-                              k2_events_ms=round(cuda_ms(k2, 50)[0], 5),
-                              k3_events_ms=round(cuda_ms(k3, 50)[0], 5))), flush=True)
+                              k2_events_ms=round(timed_ms(k2, bev.device, iters=50, reps=1), 5),
+                              k3_events_ms=round(timed_ms(k3, bev.device, iters=50, reps=1), 5))), flush=True)
 
 
 if __name__ == "__main__":

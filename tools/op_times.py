@@ -54,16 +54,20 @@ band gather's layouts at the published size (S 65536, W 640, R 2048, band
 4096): published, one_position, edges, uniform (R 128) and ragged (S
 64531, W 632), with the products K11 runs on each (`onehot_slabs_plain`).
 `band` times TREE's K11 (`band_gather_onehot`) on each, after holding it to
-TREE's plain gather bit for bit: the kernel's device time from
-torch.profiler (`kernel_ms`, null if three profiles saw none) and the mean
-of 50 back-to-back launches by CUDA events.
+TREE's plain gather bit for bit (its output in a block just filled with NaN,
+`harness.poisoned_call`): `k11_ms`, the kernel's device time from
+torch.profiler, or by CUDA events where three profiles saw none
+(`ms_source`, as `harness.device_ms`), and `events_ms`, the mean of 50
+back-to-back launches by CUDA events.
 
 `k8` times TREE's K8 (`axpy2_cuda`, 2x + y in bf16 at [256, 256], as
 `chip_smoke.py` [K8 smoke]) and `torch.add(y, x, alpha=2)` in turns, four
-rounds: each one's device time from torch.profiler and the mean of 50
-back-to-back calls by CUDA events, after holding K8 to 2x + y rounded once.
+rounds: each one's `ms` as `band`'s and `events_ms`, after holding K8 to
+2x + y rounded once. The timing helpers are this checkout's
+(`unidistill_torch/experiments/harness.py`), whatever TREE is.
 """
 import dataclasses
+import importlib.util
 import json
 import subprocess
 import sys
@@ -71,6 +75,14 @@ import time
 from pathlib import Path
 
 import torch
+
+# the timing helpers of this checkout, loaded by path: importing the package
+# here would keep TREE's from being imported
+_spec = importlib.util.spec_from_file_location(
+    "_timing", Path(__file__).resolve().parents[1] / "unidistill_torch" / "experiments" / "harness.py")
+_timing = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_timing)
+kernel_ms, device_ms, poisoned_call = _timing.kernel_ms, _timing.device_ms, _timing.poisoned_call
 
 GEOMETRIES = ("level", "train_ida", "pitch2", "train_ida_pitch2", "rot5.4")
 B, SEED = 4, 21
@@ -93,29 +105,6 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters, (time.perf_counter() - t0) / iters * 1e3
-
-
-def kernel_ms(fn, iters, name):
-    """Device time of the kernels whose name holds `name` (of every kernel
-    where name is None), per call of fn, from torch.profiler's CUDA
-    activity (no host gaps between launches); None if three profiles in a
-    row recorded none."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):  # one profile in a dozen came back without the kernel's activity on the H100
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        if name is None:
-            us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
-        else:
-            us = sum(getattr(e, "device_time_total", 0.0) for e in events if name in e.key)
-        if us > 0:
-            return us / iters / 1e3
-    return None
 
 
 def cells(out):
@@ -266,7 +255,7 @@ def nms(tree, cells_file):
         k3 = lambda: ops.nms_greedy_select_cuda(words, v, post)
         k2_ms, _ = cuda_ms(k2, 50)
         k3_ms, _ = cuda_ms(k3, 50)
-        k2_kernel_ms, k3_kernel_ms = kernel_ms(k2, 50, "iou_mask_kernel"), kernel_ms(k3, 50, "greedy_kernel")
+        k2_kernel_ms, k3_kernel_ms = kernel_ms(k2, "iou_mask_kernel"), kernel_ms(k3, "greedy_kernel")
         print(json.dumps(dict(tree=tree, layout=name, k2_ms=round(k2_ms, 5), k3_ms=round(k3_ms, 5),
                               k2_kernel_ms=None if k2_kernel_ms is None else round(k2_kernel_ms, 5),
                               k3_kernel_ms=None if k3_kernel_ms is None else round(k3_kernel_ms, 5),
@@ -298,14 +287,12 @@ def band(tree, cells_file):
     for kind, (tab, idx, w, R, nb) in torch.load(cells_file).items():
         tab, idx, w = tab.cuda(), idx.cuda(), w.cuda()
         fn = lambda: bg.band_gather_onehot(tab, idx, w, R, nb)
-        got = fn()
+        got = poisoned_call(fn, idx.shape[0] * tab.shape[1] * 2)
         if not torch.equal(got.view(torch.int16), bg.band_gather_plain(tab, idx, w, R, nb).view(torch.int16)):
             raise RuntimeError(f"K11 on {kind}: differs from the plain gather")
-        k11_ms, _ = cuda_ms(fn, 50)
-        k11_kernel_ms = kernel_ms(fn, 50, "band_gather_onehot_kernel")
-        print(json.dumps(dict(tree=tree, layout=kind, k11_ms=round(k11_ms, 5),
-                              k11_kernel_ms=None if k11_kernel_ms is None else round(k11_kernel_ms, 5))),
-              flush=True)
+        ms, source, events_ms = device_ms(fn, "band_gather_onehot_kernel")
+        print(json.dumps(dict(tree=tree, layout=kind, k11_ms=round(ms, 5), ms_source=source,
+                              events_ms=round(events_ms, 5))), flush=True)
         del tab, idx, w, got
         torch.cuda.empty_cache()
 
@@ -321,9 +308,9 @@ def k8(tree):
     calls = {"K8": (lambda: fo.axpy2_cuda(x, y), "axpy2_kernel"), "torch.add": (lambda: torch.add(y, x, alpha=2), None)}
     for rnd in range(4):
         for op, (fn, name) in calls.items():
-            dev_ms = kernel_ms(fn, 50, name)
-            print(json.dumps(dict(tree=tree, op=op, round=rnd, events_ms=round(cuda_ms(fn, 50)[0], 5),
-                                  kernel_ms=None if dev_ms is None else round(dev_ms, 5))), flush=True)
+            ms, source, events_ms = device_ms(fn, name)
+            print(json.dumps(dict(tree=tree, op=op, round=rnd, ms=round(ms, 5), ms_source=source,
+                                  events_ms=round(events_ms, 5))), flush=True)
 
 
 if __name__ == "__main__":

@@ -47,8 +47,8 @@
 // What bounds them on an H100: moving bytes (each distinct source row read
 // once, each output row written once: 50 + 84 MB at the published size).
 // K11's products are 3.7 GFLOP there (0.004 ms at the bf16 peak); its
-// warps stage 9 638 slabs a slice, reading 74 MB of their used rows from
-// L2 (197 MB if read whole). Before this design K11 ran every slab of
+// warps stage 9 638 slabs per 128 columns, reading 74 MB of their used
+// rows from L2 (197 MB if read whole). Before this design K11 ran every slab of
 // every group, 2·S·band·W = 344 GFLOP, 0.35 ms at the bf16 peak.
 //
 // The launches allocate nothing and run on the caller's stream.
@@ -110,8 +110,7 @@ __global__ void __launch_bounds__(256)
 constexpr int kOWarps = 8;
 constexpr int kOThreads = kOWarps * 32;
 constexpr int kOChunk = kOWarps * 32;  // sorted rows per block: a row a lane, two m16 groups a warp
-constexpr int kON = 128;               // columns a slice
-constexpr int kOSlices = 1;            // column slices a block walks (its one sort serves them all)
+constexpr int kON = 128;               // columns a block
 constexpr int kOSS = kON + 8;          // bf16 per staged row (conflict-free ldmatrix and C stores)
 constexpr int kOTile = 16 * kOSS;      // bf16 per staged 16-row tile
 constexpr int kOBufBytes = kOWarps * 3 * kOTile * 2;  // a warp's two slab tiles and its C tile
@@ -218,8 +217,7 @@ __device__ __forceinline__ unsigned same_key_lanes(int key, int bits) {
   return m;
 }
 
-// block (column slices [kOSlices x, kOSlices x + kOSlices), chunk y of
-// sorted rows, R-row block z)
+// block (columns [kON x, kON x + kON), chunk y of sorted rows, R-row block z)
 __global__ void __launch_bounds__(kOThreads, 2)
     band_gather_onehot_kernel(const __nv_bfloat16* __restrict__ tab, const int* __restrict__ idx,
                               const int* __restrict__ w, __nv_bfloat16* __restrict__ out,
@@ -237,7 +235,7 @@ __global__ void __launch_bounds__(kOThreads, 2)
   if (c0 >= n_rows) return;
   const int n_mine = min(kOChunk, n_rows - c0);
   const int lo = __ldg(w + blockIdx.z);
-  const int slice0 = blockIdx.x * kOSlices;
+  const int n0 = blockIdx.x * kON;
   const int nslab = band / 16;
 
   // ---- order the block's rows by slab (loc / 16), equal slabs by row
@@ -295,11 +293,9 @@ __global__ void __launch_bounds__(kOThreads, 2)
   }
 
   // ---- products: a warp owns sorted rows [32 warp, 32 warp + 32), groups
-  // g = 0, 1 of 16; for each of the block's slices of kON columns it
-  // stages each distinct slab of its rows once and runs the products of
-  // each group that has a row in it. Items t = (slice slice0 + t / n_slabs,
-  // the warp's slab t % n_slabs) stream through two tiles, item t + 1 in
-  // flight during item t.
+  // g = 0, 1 of 16; it stages each distinct slab of its rows once and runs
+  // the products of each group that has a row in it. The slabs stream
+  // through two tiles, slab t + 1 in flight during slab t.
   const int q0 = warp * 32;
   if (q0 >= n_mine) return;
   const bool valid = q0 + lane < n_mine;
@@ -308,8 +304,7 @@ __global__ void __launch_bounds__(kOThreads, 2)
   const int prev_slab = __shfl_up_sync(0xffffffffu, my_slab, 1);
   const unsigned starts = __ballot_sync(0xffffffffu, valid && (lane == 0 || prev_slab != my_slab));
   const int n_slabs = __popc(starts);
-  const int n_items = n_slabs * min(kOSlices, (W + kON - 1) / kON - slice0);
-  unsigned pending = 0;  // the slabs of this slice not staged yet
+  unsigned pending = starts;  // the slabs not staged yet
   const int gid = lane >> 2, tig = lane & 3;
   int aloc[2][2];  // band positions of rows gid and gid + 8 of each group (-1: no row)
 #pragma unroll
@@ -319,13 +314,12 @@ __global__ void __launch_bounds__(kOThreads, 2)
   __nv_bfloat16* wt = tiles + warp * 3 * kOTile;
   __nv_bfloat16* ct = wt + 2 * kOTile;
 
-  // the next item's slab (the lowest run start in `pending`, all of them
-  // again at a new slice): its 16 band rows x columns [n0, n0 + kON) into
-  // tile buf, 8 pieces of 16 bytes a lane; returns the slab. Only the band
-  // rows that one of the warp's rows sits on are read; the others, whose
-  // one-hot entries are 0 in every row, are zero-filled.
-  auto stage = [&](int buf, int n0) {
-    if (pending == 0) pending = starts;
+  // the next slab (the lowest run start in `pending`): its 16 band rows x
+  // columns [n0, n0 + kON) into tile buf, 8 pieces of 16 bytes a lane;
+  // returns the slab. Only the band rows that one of the warp's rows sits
+  // on are read; the others, whose one-hot entries are 0 in every row, are
+  // zero-filled.
+  auto stage = [&](int buf) {
     const int s = __shfl_sync(0xffffffffu, my_slab, __ffs(pending) - 1);
     pending &= pending - 1;
     const unsigned used = __reduce_or_sync(0xffffffffu, valid && my_slab == s ? 1u << (my_loc & 15) : 0u);
@@ -347,7 +341,7 @@ __global__ void __launch_bounds__(kOThreads, 2)
     for (int e = 0; e < 4; ++e) acc[ni][e] = 0.f;
 
   // acc += onehot(group g's rows, slab s) @ staged tile
-  auto products = [&](uint32_t tile, int g, int s, int n0) {
+  auto products = [&](uint32_t tile, int g, int s) {
     const int kb = 16 * s + 2 * tig;
     uint32_t a[4];
     a[0] = onehot_pair(aloc[g][0], kb);
@@ -368,7 +362,7 @@ __global__ void __launch_bounds__(kOThreads, 2)
 
   // group g's rows to their own places: C tile in shared memory, then a
   // half-warp a row with 16-byte stores
-  auto flush = [&](int g, int n0) {
+  auto flush = [&](int g) {
 #pragma unroll
     for (int ni = 0; ni < kON / 8; ++ni) {
       const int c = ni * 8 + 2 * tig;
@@ -388,13 +382,12 @@ __global__ void __launch_bounds__(kOThreads, 2)
     __syncwarp();
   };
 
-  int s = stage(0, slice0 * kON);
+  int s = stage(0);
   bool first_done = false;
-  for (int t = 0; t < n_items; ++t) {
-    const int n0 = (slice0 + t / n_slabs) * kON;
+  for (int t = 0; t < n_slabs; ++t) {
     int s_next = -1;
-    if (t + 1 < n_items) {
-      s_next = stage((t + 1) & 1, (slice0 + (t + 1) / n_slabs) * kON);
+    if (t + 1 < n_slabs) {
+      s_next = stage((t + 1) & 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -402,21 +395,18 @@ __global__ void __launch_bounds__(kOThreads, 2)
     __syncwarp();
     const unsigned in_slab = __ballot_sync(0xffffffffu, valid && my_slab == s);
     const uint32_t tile = smem_addr(wt + (t & 1) * kOTile);
-    if (in_slab & 0xffffu) products(tile, 0, s, n0);
+    if (in_slab & 0xffffu) products(tile, 0, s);
     if (in_slab >> 16) {  // slabs ascend: group 0 has no row past its first shared slab with group 1
       if (!first_done) {
-        flush(0, n0);
+        flush(0);
         first_done = true;
       }
-      products(tile, 1, s, n0);
+      products(tile, 1, s);
     }
-    __syncwarp();  // tile t & 1 takes item t + 2 next
-    if ((t + 1) % n_slabs == 0) {  // the slice's last item
-      flush(first_done ? 1 : 0, n0);
-      first_done = false;
-    }
+    __syncwarp();  // tile t & 1 takes slab t + 2 next
     s = s_next;
   }
+  flush(first_done ? 1 : 0);
 }
 
 bool bad_args(int n_tab, long long S, int row_bytes, int R, int band) {
@@ -481,8 +471,7 @@ int band_gather_onehot(const void* tab, const void* idx, const void* w, void* ou
     if (err != cudaSuccess) return err;
     if (dev < kDevices) allowed[dev] = true;
   }
-  const int n_slices = (W + kON - 1) / kON;
-  const dim3 grid((n_slices + kOSlices - 1) / kOSlices, (std::min(R, S) + kOChunk - 1) / kOChunk,
+  const dim3 grid((W + kON - 1) / kON, (std::min(R, S) + kOChunk - 1) / kOChunk,
                   (unsigned)(((long long)S + R - 1) / R));
   band_gather_onehot_kernel<<<grid, kOThreads, kOSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(tab), static_cast<const int*>(idx),

@@ -5,7 +5,10 @@ a card they raise. On the card a time is taken with CUDA events around
 ITERS applications of the operation (the JAX harness timed a `lax.scan` of
 ITERS applications, `experiments/mb_flat_subm.py::scan_op`), the median of
 `reps` such runs divided by ITERS. On the CPU the host clock stands in, and
-the time is the CPU's, not a device's.
+the time is the CPU's, not a device's. For a kernel shorter than its
+wrapper's host work, back-to-back events time the host: `kernel_ms` and
+`device_ms` read the kernel's own time from torch.profiler instead.
+`poisoned_call` makes a comparison fail a kernel that leaves outputs unwritten.
 """
 from __future__ import annotations
 
@@ -53,3 +56,72 @@ def timed_ms(fn, device: torch.device, iters: int = ITERS, reps: int = 5) -> flo
             ts.append((time.perf_counter() - t0) * 1e3 / iters)
     ts.sort()
     return ts[len(ts) // 2]
+
+
+def _profiled(fn, name: str | None, iters: int) -> tuple[float, int]:
+    """(µs, records): the device time and the number of kernel records of
+    the kernels whose name holds `name` (of every kernel where name is
+    None) in one torch.profiler profile of `iters` calls of fn; three tries
+    while a profile records none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # one profile in a dozen came back without the kernel's activity on the H100
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        timed = [e for e in prof.key_averages()
+                 if (name is None or name in e.key) and getattr(e, "self_device_time_total", 0.0) > 0]
+        n = sum(e.count for e in timed)
+        if n:
+            return sum(e.self_device_time_total for e in timed), n
+    return 0.0, 0
+
+
+def _per_call(us: float, n: int, iters: int) -> tuple[float, int]:
+    """(ms a call, records a complete profile holds): the mean over the
+    records kept, times the kernels a call launches. A process that has
+    profiled many times loses some records (`device_ms` labels it), so the
+    sum over `iters` would read low."""
+    per_call = max(1, round(n / iters))
+    return us / n * per_call / 1e3, per_call * iters
+
+
+def kernel_ms(fn, name: str | None, iters: int = 50) -> float | None:
+    """Device time a call of fn spends in kernels whose name holds `name`
+    (every kernel it launches where name is None), from torch.profiler's
+    CUDA activity, with no host gaps between launches. None if three
+    profiles in a row recorded no device time."""
+    us, n = _profiled(fn, name, iters)
+    return _per_call(us, n, iters)[0] if n else None
+
+
+def device_ms(fn, name: str | None, iters: int = 50) -> tuple[float, str, float]:
+    """(ms, source, events_ms): fn's device time as `kernel_ms` takes it, or
+    the mean of `iters` back-to-back calls by CUDA events where three
+    profiles saw none, which `source` names: "profiler", "profiler:N/M"
+    where the profile kept N of its M kernel records, or "events";
+    events_ms beside."""
+    events_ms = timed_ms(fn, torch.device("cuda"), iters=iters, reps=1)
+    us, n = _profiled(fn, name, iters)
+    if not n:
+        return events_ms, "events", events_ms
+    ms, full = _per_call(us, n, iters)
+    return ms, "profiler" if n == full else f"profiler:{n}/{full}", events_ms
+
+
+def poisoned_call(fn, nbytes: int) -> torch.Tensor:
+    """fn(), whose output of `nbytes` is its one allocation that large, with
+    that output in a block just filled with NaN: the free cached blocks are
+    released, then `nbytes` of NaN allocated and freed, so the allocator's
+    next block of that size is theirs. Rows a kernel leaves unwritten then
+    hold NaN, not an earlier call's correct result. Raises if the output
+    landed elsewhere."""
+    torch.cuda.empty_cache()
+    at = torch.full((nbytes // 2,), float("nan"), dtype=torch.bfloat16, device="cuda").data_ptr()
+    out = fn()
+    torch.cuda.synchronize()
+    if out.data_ptr() != at:
+        raise RuntimeError("poisoned_call: the output did not land in the NaN-filled block")
+    return out
