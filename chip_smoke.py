@@ -99,15 +99,19 @@ Phases, each printed on its own line:
            printed); each of K7-K11 must launch
   K8 smoke, K9 fori, K9 fori4, K10 take, K11 onehot   each kernel against
            its plain version on the same inputs, bit for bit, and on a
-           rerun (K9-K11 with each output in a block of the pool just
-           filled with NaN, `harness.poisoned_call`, so that rows a kernel
-           leaves unwritten cannot hold an earlier call's answer); kernel /
+           rerun (each output in a block of the pool just filled with NaN,
+           `harness.poisoned_call`, so that values a kernel leaves
+           unwritten cannot hold an earlier call's answer); kernel /
            plain / library (`torch.add`, `index_select`) / bound ms, the
+           time's share of the bound (`bound_share`) and its ratio to the
+           library call's (`ms_over_library`), the
            kernel's and the library call's ms their device time from
            torch.profiler (`ms_source`, `library_ms_source`; "profiler:N/M"
            where the profile kept N of its M kernel records: the mean over
            the N, `harness.device_ms`) with back-to-back CUDA events beside
-           them (`events_ms`); K11 also
+           them (`events_ms`); K8 also prints its kernel's grid, block,
+           registers and values a thread from a profiler trace beside
+           `torch.add`'s (`library_*`); K11 also
            prints the products it runs (modelled by `onehot_slabs_plain`,
            per n8 tile) beside the dense product's, its bound over the
            products it runs and the dense product's (`dense_ops_ms`)
@@ -1194,7 +1198,7 @@ def microbench_phases(dev, table) -> None:
     published stage sizes), then K7-K11 against their plain versions."""
     from unidistill_torch.configs.nuscenes import lidar_exp
     from unidistill_torch.experiments import mb_gather_pallas, mb_pallas_fused
-    from unidistill_torch.experiments.harness import device_ms, poisoned_call
+    from unidistill_torch.experiments.harness import device_ms, kernel_geometry, poisoned_call
     from unidistill_torch.experiments.realistic import realistic_inputs
     from unidistill_torch.kernels import build
     from unidistill_torch.ops import band_gather as bg
@@ -1234,26 +1238,42 @@ def microbench_phases(dev, table) -> None:
 
     # ---- K8 smoke -------------------------------------------------------------
     # device time (profiler) beside CUDA events: at [256, 256] back-to-back
-    # events time the wrappers' host work
+    # events time the wrappers' host work; the output in a NaN-filled block
+    # (an earlier same-size result left in the pool would pass a K8 that
+    # skips values)
     gen = torch.Generator().manual_seed(31)
     x = torch.randn(256, 256, generator=gen).mul(4).to(torch.bfloat16).to(dev)
     y = torch.randn(256, 256, generator=gen).to(torch.bfloat16).to(dev)
-    got, ref = fo.axpy2_cuda(x, y), fo.smoke_plain(x, y)
-    torch.cuda.synchronize()
-    if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
-        raise RuntimeError("K8 differs from 2x + y rounded once")
+    ref = fo.smoke_plain(x, y)
+    for attempt in ("first", "rerun"):
+        got = poisoned_call(lambda: fo.axpy2_cuda(x, y), x.numel() * 2)
+        if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
+            raise RuntimeError(f"K8 ({attempt} call) differs from 2x + y rounded once")
     ms, source, events_ms = device_ms(lambda: fo.axpy2_cuda(x, y), "axpy2_kernel")
     plain_ms = cuda_ms(lambda: fo.smoke_plain(x, y), iters=50)
     library_ms, library_source, library_events_ms = device_ms(lambda: torch.add(y, x, alpha=2), None)
     bound = 3 * x.numel() * 2 / HBM_BYTES_PER_S * 1e3
-    log("K8 smoke", shape=list(x.shape), bit_equal=True, ms=f"{ms:.5f}", ms_source=source,
+    geometry = {}
+    for who, fn, kname in (("", lambda: fo.axpy2_cuda(x, y), "axpy2_kernel"),
+                           ("library_", lambda: torch.add(y, x, alpha=2), None)):
+        found = kernel_geometry(fn, kname)
+        if len(found) != 1:  # a profiler gap is no fault of the kernel's: say so and go on
+            geometry[f"{who}kernel"] = f"'{len(found)} distinct launches recorded'"
+            continue
+        (g,) = found
+        geometry.update({f"{who}kernel": repr(g["name"][:72]), f"{who}grid": g["grid"][0],
+                         f"{who}block": g["block"][0], f"{who}registers": g["registers"],
+                         f"{who}values_per_thread": x.numel() // g["threads"]})
+    log("K8 smoke", shape=list(x.shape), bit_equal=True, bit_identical=True, ms=f"{ms:.5f}", ms_source=source,
         events_ms=f"{events_ms:.5f}", plain_ms=f"{plain_ms:.5f}", library_ms=f"{library_ms:.5f}",
         library_ms_source=library_source, library_events_ms=f"{library_events_ms:.5f}",
-        bound_ms=f"{bound:.6f}")
+        bound_ms=f"{bound:.6f}", bound_share=f"{bound / ms:.3f}", ms_over_library=f"{ms / library_ms:.3f}",
+        **geometry)
     table.append(dict(name="axpy2_bf16", route="cuda", source="unidistill_torch/csrc/fused_offsets.cu",
                       replaces="experiments/mb_pallas_fused.py:134", launches=launches["axpy2_bf16"],
                       max_abs_err=0.0, ms=ms, ms_source=source, plain_ms=plain_ms, bound_ms=bound,
                       bound_by="bytes", library_ms=library_ms, library_ms_source=library_source))
+    del x, y, ref, got
 
     # ---- K9-K11: the band gathers ------------------------------------------------
     S, W, R, band = mb_gather_pallas.S, mb_gather_pallas.W, mb_gather_pallas.R, mb_gather_pallas.BAND
@@ -1304,7 +1324,8 @@ def microbench_phases(dev, table) -> None:
             ms=f"{ms:.4f}", ms_source=source, events_ms=f"{events_ms:.4f}", ns_per_row=f"{ms / S * 1e6:.3f}",
             plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}", library_ms_source=library_source,
             library_events_ms=f"{library_events_ms:.4f}", bound_ms=f"{max(bytes_ms, ops_ms):.4f}",
-            bound_by=bound_by, bytes_ms=f"{bytes_ms:.4f}", ops_ms=f"{ops_ms:.4f}", **extra)
+            bound_by=bound_by, bytes_ms=f"{bytes_ms:.4f}", ops_ms=f"{ops_ms:.4f}",
+            bound_share=f"{max(bytes_ms, ops_ms) / ms:.3f}", ms_over_library=f"{ms / library_ms:.3f}", **extra)
         table.append(dict(name=key, route="cuda", source="unidistill_torch/csrc/band_gather.cu",
                           replaces=replaces, launches=launches[key], max_abs_err=0.0, ms=ms, ms_source=source,
                           plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms), bound_by=bound_by,

@@ -47,7 +47,10 @@ products) at 1e-5 of max |ref| (exact bf16 products summed in f32 in
 another order) and bit-equal on a rerun; K8 (2x + y in bf16) and the band
 gathers K9 (unroll 1 and 4), K10 and K11 bit-equal to their plain versions
 (each output of K11 is a sum with one nonzero term), K11 also on the
-layouts of `mb_gather_pallas.band_layout` and bit-identical on a rerun.
+layouts of `mb_gather_pallas.band_layout` and bit-identical on a rerun;
+K8 at sizes around its 8-value vectors and on views off the 16-byte grid,
+K9 and K10 on the edges of K10's tile and past 2 GB of table, each output
+in a block just filled with NaN.
 """
 import numpy as np
 import pytest
@@ -823,14 +826,21 @@ def test_fused_offsets_kernel_matches_plain(cuda_device, B, S, C):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [256 * 256, 1001])
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 1001, 256 * 256, 2**20 + 3])
 def test_axpy2_kernel_is_bit_exact(cuda_device, n):
+    """K8 on aligned operands and on views 2 bytes off the 16-byte grid,
+    each output in a block just filled with NaN (values K8 left unwritten
+    would stay NaN), launched once a call."""
+    from unidistill_torch.experiments.harness import poisoned_call
+    from unidistill_torch.kernels import build
     rng = np.random.default_rng(n)
     x = torch.from_numpy(rng.standard_normal(n + 1) * 4).to(torch.bfloat16).to(cuda_device)
     y = torch.from_numpy(rng.standard_normal(n + 1) * 2.0 ** rng.integers(-20, 20, n + 1)).to(
         torch.bfloat16).to(cuda_device)
     for a, b in ((x[:n], y[:n]), (x[1:], y[1:])):  # aligned, and views off the 16-byte grid
-        got = fused_offsets.axpy2(a, b)
+        before = build.LAUNCHES["axpy2_bf16"]
+        got = poisoned_call(lambda: fused_offsets.axpy2(a, b), 2 * n)
+        assert build.LAUNCHES["axpy2_bf16"] == before + 1
         assert torch.equal(got.view(torch.int16), fused_offsets.smoke_plain(a, b).view(torch.int16))
     assert fused_offsets.smoke(cuda_device) == 5.0
 
@@ -869,6 +879,66 @@ def test_band_gather_kernels_are_bit_exact(cuda_device, variant, S, W, R, band, 
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
     assert torch.equal(fn(tab, idx, w, R, band), got)
+
+
+def _outside_band_case(device, S, W, R, band, n_tab, seed):
+    """Every index outside its block's band, below or above it."""
+    tab, _, w = _band_case(device, S, W, R, band, n_tab, seed)
+    rng = np.random.default_rng(seed + 1)
+    lo = w.cpu().numpy().repeat(R)[:S]
+    below = rng.random(S) < 0.5
+    idx = np.where(below, lo - 1 - rng.integers(0, 1000, S), lo + band + rng.integers(0, 1000, S))
+    return tab, torch.from_numpy(idx.astype(np.int32)).to(device), w
+
+
+# K10's tile holds 1024 pieces (12 rows at W 640): R not a multiple of it,
+# rows of 79 pieces (W 632), S under one tile, rows of more pieces than a
+# tile (W 20000: 2500), every index outside its band
+TAKE_CASES = {"R37_W640": (1000, 640, 37, 256, 1500), "W632": (2000, 632, 256, 512, 3000),
+              "S7": (7, 640, 4, 16, 64), "W20000": (50, 20000, 16, 32, 100),
+              "outside_band": (1000, 640, 100, 256, 2000)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["fori", "fori4", "take"])
+@pytest.mark.parametrize("case", list(TAKE_CASES))
+def test_band_gather_copies_on_tile_edges(cuda_device, case, variant):
+    """K9 and K10 equal to the plain gather bit for bit, each output in a
+    block just filled with NaN, and to themselves on a rerun."""
+    from unidistill_torch.experiments.harness import poisoned_call
+    S, W, R, band, n_tab = TAKE_CASES[case]
+    make = _outside_band_case if case == "outside_band" else _band_case
+    tab, idx, w = make(cuda_device, S, W, R, band, n_tab, seed=S + W)
+    fn = {"fori": lambda: band_gather.band_gather_fori(tab, idx, w, R, band, unroll=1),
+          "fori4": lambda: band_gather.band_gather_fori(tab, idx, w, R, band, unroll=4),
+          "take": lambda: band_gather.band_gather_take(tab, idx, w, R, band)}[variant]
+    ref = band_gather.band_gather_plain(tab, idx, w, R, band)
+    got = poisoned_call(fn, ref.numel() * ref.element_size())
+    assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+    assert torch.equal(poisoned_call(fn, ref.numel() * ref.element_size()).view(torch.int16), got.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_band_gather_copies_past_2_gb_of_table(cuda_device):
+    """A table of 1 750 000 rows of 1280 bytes (2.24 GB): rows past 2^31
+    bytes need 64-bit row offsets in K9 and K10."""
+    from unidistill_torch.experiments.harness import poisoned_call
+    n_tab, W, S, R, band = 1_750_000, 640, 4096, 1024, 4096
+    assert n_tab * W * 2 > 2**31
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    tab = torch.randint(-2**15, 2**15, (n_tab, W), dtype=torch.int16, device=cuda_device, generator=gen)
+    tab = tab.view(torch.bfloat16)
+    rng = np.random.default_rng(3)
+    w = (n_tab - band - rng.integers(0, 50_000, S // R)).astype(np.int32)
+    idx = (w.repeat(R) + rng.integers(-500, band + 500, S)).clip(0, n_tab - 1).astype(np.int32)
+    w, idx = torch.from_numpy(w).to(cuda_device), torch.from_numpy(idx).to(cuda_device)
+    ref = band_gather.band_gather_plain(tab, idx, w, R, band)
+    assert int(band_gather.band_source_rows(idx, w, R, band).min()) * W * 2 > 2**31
+    for fn in (lambda: band_gather.band_gather_fori(tab, idx, w, R, band, unroll=1),
+               lambda: band_gather.band_gather_fori(tab, idx, w, R, band, unroll=4),
+               lambda: band_gather.band_gather_take(tab, idx, w, R, band)):
+        got = poisoned_call(fn, ref.numel() * ref.element_size())
+        assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
 
 
 # K11 on layouts that stress its ordering by slab (`mb_gather_pallas.band_layout`),

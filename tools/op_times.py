@@ -10,6 +10,7 @@ the order parent, change, change, parent.
     python tools/op_times.py nms TREE NMS_CELLS.pt
     python tools/op_times.py band_cells OUT.pt
     python tools/op_times.py band TREE BAND_CELLS.pt
+    python tools/op_times.py k10 TREE BAND_CELLS.pt
     python tools/op_times.py k8 TREE
 
 `cells` writes, with this tree's `serving.synthetic.nuscenes_cells`, the
@@ -55,15 +56,27 @@ band gather's layouts at the published size (S 65536, W 640, R 2048, band
 64531, W 632), with the products K11 runs on each (`onehot_slabs_plain`).
 `band` times TREE's K11 (`band_gather_onehot`) on each, after holding it to
 TREE's plain gather bit for bit (its output in a block just filled with NaN,
-`harness.poisoned_call`): `k11_ms`, the kernel's device time from
+`harness.poisoned_call`): `ms`, the kernel's device time from
 torch.profiler, or by CUDA events where three profiles saw none
 (`ms_source`, as `harness.device_ms`), and `events_ms`, the mean of 50
 back-to-back launches by CUDA events.
 
+`k10` times TREE's K10 (`band_gather_take`), K9 (`band_gather_fori`,
+unroll 1) and `index_select` on the clipped rows on each of those layouts,
+in turns, two rounds, each as `band` times K11, after holding K10 and K9
+to TREE's plain gather bit for bit in a NaN-filled block; it first prints
+the SASS instruction count of TREE's K10 kernel (`cuobjdump -sass` on
+TREE's built library).
+
 `k8` times TREE's K8 (`axpy2_cuda`, 2x + y in bf16 at [256, 256], as
-`chip_smoke.py` [K8 smoke]) and `torch.add(y, x, alpha=2)` in turns, four
-rounds: each one's `ms` as `band`'s and `events_ms`, after holding K8 to
-2x + y rounded once. The timing helpers are this checkout's
+`chip_smoke.py` [K8 smoke]) and `torch.add(y, x, alpha=2)` in turns, eight
+rounds, the one timed first alternating: each one's `ms` as `band`'s and
+`events_ms`, then each one's median, least and largest `ms`, after
+holding K8 to 2x + y rounded once in a NaN-filled block. It first
+prints each one's kernel as a torch.profiler trace records it (name,
+grid, block, threads, registers, values a thread;
+`harness.kernel_geometry`) and the SASS instruction count of TREE's K8
+kernel. The timing helpers are this checkout's
 (`unidistill_torch/experiments/harness.py`), whatever TREE is.
 """
 import dataclasses
@@ -83,6 +96,9 @@ _spec = importlib.util.spec_from_file_location(
 _timing = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(_timing)
 kernel_ms, device_ms, poisoned_call = _timing.kernel_ms, _timing.device_ms, _timing.poisoned_call
+kernel_geometry = _timing.kernel_geometry
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from variant_build import sass_counts  # noqa: E402  (imports no package)
 
 GEOMETRIES = ("level", "train_ida", "pitch2", "train_ida_pitch2", "rot5.4")
 B, SEED = 4, 21
@@ -281,36 +297,78 @@ def band_cells(out):
     torch.save(saved, out)
 
 
-def band(tree, cells_file):
+def _band_times(tree, cells_file, ops, rounds):
+    """Device time of TREE's band gathers `ops` (K11, K10, K9; index_select
+    on the clipped rows, the yardstick) on each layout, in turns, after
+    holding each kernel to TREE's plain gather bit for bit in a NaN-filled
+    block."""
     sys.path.insert(0, tree)
     from unidistill_torch.ops import band_gather as bg
     for kind, (tab, idx, w, R, nb) in torch.load(cells_file).items():
         tab, idx, w = tab.cuda(), idx.cuda(), w.cuda()
-        fn = lambda: bg.band_gather_onehot(tab, idx, w, R, nb)
-        got = poisoned_call(fn, idx.shape[0] * tab.shape[1] * 2)
-        if not torch.equal(got.view(torch.int16), bg.band_gather_plain(tab, idx, w, R, nb).view(torch.int16)):
-            raise RuntimeError(f"K11 on {kind}: differs from the plain gather")
-        ms, source, events_ms = device_ms(fn, "band_gather_onehot_kernel")
-        print(json.dumps(dict(tree=tree, layout=kind, k11_ms=round(ms, 5), ms_source=source,
-                              events_ms=round(events_ms, 5))), flush=True)
-        del tab, idx, w, got
+        src = bg.band_source_rows(idx, w, R, nb).long()
+        calls = {"K11": (lambda: bg.band_gather_onehot(tab, idx, w, R, nb), "band_gather_onehot_kernel"),
+                 "K10": (lambda: bg.band_gather_take(tab, idx, w, R, nb), "band_gather_take_kernel"),
+                 "K9": (lambda: bg.band_gather_fori(tab, idx, w, R, nb), "band_gather_fori_kernel"),
+                 "index_select": (lambda: tab.index_select(0, src), None)}
+        ref = bg.band_gather_plain(tab, idx, w, R, nb)
+        for op in ops:
+            if op != "index_select":
+                got = poisoned_call(calls[op][0], ref.numel() * ref.element_size())
+                if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
+                    raise RuntimeError(f"{op} on {kind}: differs from the plain gather")
+                del got
+        del ref
+        for rnd in range(rounds):
+            for op in ops:
+                ms, source, events_ms = device_ms(*calls[op])
+                print(json.dumps(dict(tree=tree, layout=kind, op=op, round=rnd, ms=round(ms, 5), ms_source=source,
+                                      events_ms=round(events_ms, 5))), flush=True)
+        del tab, idx, w, src
         torch.cuda.empty_cache()
+
+
+def band(tree, cells_file):
+    _band_times(tree, cells_file, ("K11",), 1)
+
+
+def k10(tree, cells_file):
+    sys.path.insert(0, tree)
+    from unidistill_torch.kernels import build
+    build.library("band_gather")
+    counts = sass_counts(build._lib_path("band_gather"), "band_gather_take_kernel")
+    print(json.dumps(dict(tree=tree, sass={k: dict(c) for k, c in counts.items()})), flush=True)
+    _band_times(tree, cells_file, ("K10", "K9", "index_select"), 2)
 
 
 def k8(tree):
     sys.path.insert(0, tree)
+    from unidistill_torch.kernels import build
     from unidistill_torch.ops import fused_offsets as fo
     gen = torch.Generator().manual_seed(31)
     x = torch.randn(256, 256, generator=gen).mul(4).to(torch.bfloat16).cuda()
     y = torch.randn(256, 256, generator=gen).to(torch.bfloat16).cuda()
-    if not torch.equal(fo.axpy2_cuda(x, y).view(torch.int16), fo.smoke_plain(x, y).view(torch.int16)):
+    got = poisoned_call(lambda: fo.axpy2_cuda(x, y), x.numel() * 2)
+    if not torch.equal(got.view(torch.int16), fo.smoke_plain(x, y).view(torch.int16)):
         raise RuntimeError("K8 differs from 2x + y rounded once")
     calls = {"K8": (lambda: fo.axpy2_cuda(x, y), "axpy2_kernel"), "torch.add": (lambda: torch.add(y, x, alpha=2), None)}
-    for rnd in range(4):
-        for op, (fn, name) in calls.items():
+    for op, (fn, name) in calls.items():
+        for g in kernel_geometry(fn, name):
+            print(json.dumps(dict(tree=tree, op=op, values_per_thread=x.numel() // g["threads"], **g)), flush=True)
+    counts = sass_counts(build._lib_path("fused_offsets"), "axpy2")
+    print(json.dumps(dict(tree=tree, sass={k: dict(c) for k, c in counts.items()})), flush=True)
+    times = {op: [] for op in calls}
+    for rnd in range(8):
+        for op in list(calls)[::1 if rnd % 2 == 0 else -1]:  # who goes first alternates
+            fn, name = calls[op]
             ms, source, events_ms = device_ms(fn, name)
-            print(json.dumps(dict(tree=tree, op=op, round=rnd, ms=round(ms, 5), ms_source=source,
+            times[op].append(ms)
+            print(json.dumps(dict(tree=tree, op=op, round=rnd, ms=round(ms, 7), ms_source=source,
                                   events_ms=round(events_ms, 5))), flush=True)
+    for op, ts in times.items():
+        ts.sort()
+        print(json.dumps(dict(tree=tree, op=op, rounds=len(ts), median_ms=round((ts[3] + ts[4]) / 2, 7),
+                              min_ms=round(ts[0], 7), max_ms=round(ts[-1], 7))), flush=True)
 
 
 if __name__ == "__main__":
@@ -318,4 +376,4 @@ if __name__ == "__main__":
         sys.exit("op_times: needs a CUDA device")
     print(_card(), flush=True)
     {"cells": cells, "k5": k5, "voxelize": voxelize, "predict": predict, "nms_cells": nms_cells,
-     "nms": nms, "band_cells": band_cells, "band": band, "k8": k8}[sys.argv[1]](*sys.argv[2:])
+     "nms": nms, "band_cells": band_cells, "band": band, "k10": k10, "k8": k8}[sys.argv[1]](*sys.argv[2:])

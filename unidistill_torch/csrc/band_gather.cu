@@ -19,9 +19,19 @@
 //   * K9: one warp per row (unroll 1) or per 4 consecutive rows (unroll 4),
 //     16-byte loads along the row; with unroll 4 a warp issues its four
 //     rows' loads before their stores;
-//   * K10: each thread copies one (row, 16-byte piece) pair, so consecutive
-//     threads read consecutive pieces and a block reads whole rows
-//     together;
+//   * K10: a block copies whole rows as consecutive 16-byte pieces, its
+//     threads on consecutive pieces across row ends: a tile of at most
+//     1024 pieces (12 rows at 1280-byte rows). Its first threads find the
+//     tile's source rows once (w and idx loads, the clip) into shared
+//     memory; each thread then walks its 4 pieces 256 apart by adding a
+//     constant step to (row, piece) with one carry, no division per
+//     piece, and makes all 4 loads before its 4 stores; the stores
+//     stream (st.global.cs), so the output does not evict band rows that
+//     later tiles read again from L2. 32-bit offsets inside a tile,
+//     64-bit row offsets into the table and the output. About 21 SASS
+//     instructions a piece, 28 with the thread's set-up (a thread a
+//     piece ran ~76, two 64-bit divisions among them);
+//     `tools/k10_variants.py` times it without each mechanism;
 //   * K11: the product onehot[R, band] @ band[band, W] on the tensor cores
 //     (bf16 mma.sync m16n8k16, f32 sums, cast to bf16), run only where the
 //     one-hot is not all zero. A block owns (an R-row block j, a chunk of
@@ -94,18 +104,60 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-__global__ void __launch_bounds__(256)
+// ---- K10 region: tools/k10_variants.py compiles edits of the text up to its end
+constexpr int kTThreads = 256;
+constexpr int kTPieces = 4;                     // pieces a thread: loads in flight before its stores
+constexpr int kTTile = kTThreads * kTPieces;    // pieces a block
+constexpr int kTMaxRows = 256;                  // rows a block (rows of up to 128 bytes)
+
+__device__ __forceinline__ uint4 take_load(const uint4* p) { return __ldg(p); }
+__device__ __forceinline__ void take_store(uint4* p, const uint4& v) { __stcs(p, v); }
+
+// rows [row0, row0 + rows), row0 = blockIdx.x * rows_per_block; a row has
+// vpr pieces; step_r, step_c = divmod(kTThreads, vpr)
+__global__ void __launch_bounds__(kTThreads)
     band_gather_take_kernel(const uint4* __restrict__ tab, const int* __restrict__ idx,
-                            const int* __restrict__ w, uint4* __restrict__ out, int n_tab,
-                            long long S, int R, int band, int vpr) {
-  const long long total = S * vpr;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < total; t += stride) {
-    const long long k = t / vpr;
-    const int c = (int)(t - k * vpr);
-    out[t] = __ldg(tab + (long long)band_row(idx, w, k, R, band, n_tab) * vpr + c);
+                            const int* __restrict__ w, uint4* __restrict__ out, int n_tab, int S,
+                            int R, int band, int vpr, int rows_per_block, int step_r, int step_c) {
+  __shared__ const uint4* src[kTMaxRows];
+  const int row0 = blockIdx.x * rows_per_block;
+  const int rows = min(rows_per_block, S - row0);
+  for (int r = threadIdx.x; r < rows; r += kTThreads) {
+    const int k = row0 + r;
+    const int lo = __ldg(w + k / R);
+    const int i = min(max(__ldg(idx + k), lo), lo + band - 1);
+    src[r] = tab + (long long)min(max(i, 0), n_tab - 1) * vpr;  // memory safety when w breaks its contract
+  }
+  __syncthreads();
+  uint4* dst = out + (long long)row0 * vpr;
+  const int n = rows * vpr;
+  int r = threadIdx.x / vpr, c = threadIdx.x - r * vpr;
+  for (int p0 = threadIdx.x; p0 < n; p0 += kTTile) {  // one pass unless a row has over kTTile pieces
+    uint4 v[kTPieces];
+#pragma unroll
+    for (int u = 0; u < kTPieces; ++u) {
+      if (p0 + u * kTThreads < n) v[u] = take_load(src[r] + c);
+      r += step_r;
+      c += step_c;
+      if (c >= vpr) {
+        c -= vpr;
+        ++r;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kTPieces; ++u)
+      if (p0 + u * kTThreads < n) take_store(dst + p0 + u * kTThreads, v[u]);
   }
 }
+
+void take_launch(const uint4* tab, const int* idx, const int* w, uint4* out, int n_tab, int S, int R,
+                 int band, int vpr, cudaStream_t st) {
+  const int rows_per_block = std::max(1, std::min(kTMaxRows, kTTile / vpr));
+  const unsigned blocks = (unsigned)((S + rows_per_block - 1LL) / rows_per_block);
+  band_gather_take_kernel<<<blocks, kTThreads, 0, st>>>(tab, idx, w, out, n_tab, S, R, band, vpr,
+                                                         rows_per_block, kTThreads / vpr, kTThreads % vpr);
+}
+// ---- end of the K10 region
 
 constexpr int kOWarps = 8;
 constexpr int kOThreads = kOWarps * 32;
@@ -417,8 +469,8 @@ bool bad_args(int n_tab, long long S, int row_bytes, int R, int band) {
 
 extern "C" {
 
-// variant 0: K9 unroll 1, 1: K9 unroll 4, 2: K10; row_bytes and both
-// pointers multiples of 16
+// variant 0: K9 unroll 1, 1: K9 unroll 4, 2: K10 (S < 2^31); row_bytes
+// and both pointers multiples of 16
 int band_gather_copy(const void* tab, const void* idx, const void* w, void* out, int n_tab,
                      long long S, int row_bytes, int R, int band, int variant, void* stream) {
   if (bad_args(n_tab, S, row_bytes, R, band) || row_bytes % 16 != 0 ||
@@ -442,8 +494,8 @@ int band_gather_copy(const void* tab, const void* idx, const void* w, void* out,
       band_gather_fori_kernel<4><<<(unsigned)blocks, 256, 0, st>>>(tp, ip, wp, op, n_tab, S, R, band, vpr);
       break;
     case 2:
-      blocks = std::min((S * vpr + 255) / 256, 1LL << 30);
-      band_gather_take_kernel<<<(unsigned)blocks, 256, 0, st>>>(tp, ip, wp, op, n_tab, S, R, band, vpr);
+      if (S >= (1LL << 31)) return cudaErrorInvalidValue;
+      take_launch(tp, ip, wp, op, n_tab, (int)S, R, band, vpr, st);
       break;
     default:
       return cudaErrorInvalidValue;

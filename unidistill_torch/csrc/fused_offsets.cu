@@ -38,7 +38,17 @@
 // out = x * 2 + y on [256, 256] bf16). 2x is exact in bf16, so computing
 // 2x + y in f32 and rounding once gives the bf16 result bit for bit (the
 // exact sum of two bf16 values either fits f32 or lies far from a bf16
-// rounding midpoint). 16-byte loads and stores; bound by bytes.
+// rounding midpoint). Bound by bytes, but at [256, 256] (393 KB, 0.12 us
+// at 3.35 TB/s) a launch's fixed cost of about 1.1 us is the time, so the
+// body is the shortest path from launch to the first load: a thread owns
+// one 16-byte vector of each operand and loads both before any arithmetic;
+// 32-bit indices (a launch covers at most 2^30 values, larger n take
+// several); no grid-stride loop and no runtime vector test (pointers off
+// the 16-byte grid take a separate kernel, a value a thread); where the
+// blocks cover n exactly (as at [256, 256]) an instance with no bound
+// test; otherwise the n % 8 values past the last vector go to the last
+// block's first threads. The geometry is `torch.add`'s (64 blocks of 128
+// threads, 8 values a thread at [256, 256], read from a profiler trace).
 //
 // The launches allocate nothing and run on the caller's stream.
 #include <cuda_bf16.h>
@@ -238,32 +248,96 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- K8 region: tools/k8_variants.py compiles edits of the text up to its end
+constexpr int kAxThreads = 128;            // threads a block: 64 blocks at [256, 256]
+constexpr int kAxVecs = 1;                 // 16-byte vectors of each operand a thread
+constexpr long long kAxChunk = 1LL << 30;  // values a launch, a multiple of 8
+
+__device__ __forceinline__ uint4 ax_load(const uint4* p) { return __ldg(p); }
+__device__ __forceinline__ void ax_store(uint4* p, const uint4& v) { *p = v; }
+
 __device__ __forceinline__ uint32_t axpy2_pair(uint32_t x, uint32_t y) {
   return pack_bf16(fmaf(2.f, bf16_lo(x), bf16_lo(y)), fmaf(2.f, bf16_hi(x), bf16_hi(y)));
 }
 
-__global__ void axpy2_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ y,
-                             __nv_bfloat16* __restrict__ out, long long n, int vec) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long done = 0;
-  if (vec) {
-    const long long nv = n / 8;
-    for (long long i = t0; i < nv; i += stride) {
-      const uint4 a = __ldg(reinterpret_cast<const uint4*>(x) + i);
-      const uint4 b = __ldg(reinterpret_cast<const uint4*>(y) + i);
-      uint4 o;
-      o.x = axpy2_pair(a.x, b.x);
-      o.y = axpy2_pair(a.y, b.y);
-      o.z = axpy2_pair(a.z, b.z);
-      o.w = axpy2_pair(a.w, b.w);
-      reinterpret_cast<uint4*>(out)[i] = o;
-    }
-    done = nv * 8;
-  }
-  for (long long i = done + t0; i < n; i += stride)
-    out[i] = __float2bfloat16_rn(fmaf(2.f, __bfloat162float(x[i]), __bfloat162float(y[i])));
+__device__ __forceinline__ __nv_bfloat16 axpy2_value(__nv_bfloat16 x, __nv_bfloat16 y) {
+  return __float2bfloat16_rn(fmaf(2.f, __bfloat162float(x), __bfloat162float(y)));
 }
+
+// x, y, out 16-byte aligned: vectors [0, nv), kAxVecs a thread kAxThreads
+// apart; the last block's first `tail` threads take the values past them.
+// kWhole: the blocks cover [0, nv) exactly and tail is 0, so no thread
+// tests a bound (the first loads wait on no kernel parameter but the
+// pointers)
+template <bool kWhole>
+__global__ void __launch_bounds__(kAxThreads)
+    axpy2_kernel(const uint4* __restrict__ x, const uint4* __restrict__ y, uint4* __restrict__ out,
+                 unsigned nv, unsigned tail) {
+  const unsigned i0 = blockIdx.x * (kAxThreads * kAxVecs) + threadIdx.x;
+  uint4 a[kAxVecs], b[kAxVecs];
+#pragma unroll
+  for (int v = 0; v < kAxVecs; ++v) {
+    if (kWhole || i0 + v * kAxThreads < nv) {
+      a[v] = ax_load(x + i0 + v * kAxThreads);
+      b[v] = ax_load(y + i0 + v * kAxThreads);
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < kAxVecs; ++v) {
+    if (kWhole || i0 + v * kAxThreads < nv) {
+      uint4 o;
+      o.x = axpy2_pair(a[v].x, b[v].x);
+      o.y = axpy2_pair(a[v].y, b[v].y);
+      o.z = axpy2_pair(a[v].z, b[v].z);
+      o.w = axpy2_pair(a[v].w, b[v].w);
+      ax_store(out + i0 + v * kAxThreads, o);
+    }
+  }
+  if (!kWhole && tail != 0 && blockIdx.x == gridDim.x - 1 && threadIdx.x < tail) {
+    const unsigned i = nv * 8 + threadIdx.x;
+    reinterpret_cast<__nv_bfloat16*>(out)[i] = axpy2_value(
+        reinterpret_cast<const __nv_bfloat16*>(x)[i], reinterpret_cast<const __nv_bfloat16*>(y)[i]);
+  }
+}
+
+// a pointer off the 16-byte grid: a value a thread
+__global__ void __launch_bounds__(kAxThreads)
+    axpy2_unaligned_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ y,
+                           __nv_bfloat16* __restrict__ out, unsigned n) {
+  const unsigned i = blockIdx.x * kAxThreads + threadIdx.x;
+  if (i < n) out[i] = axpy2_value(x[i], y[i]);
+}
+
+int axpy2_launch(const void* x, const void* y, void* out, long long n, cudaStream_t st) {
+  if (n < 0) return cudaErrorInvalidValue;
+  const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y) |
+                         reinterpret_cast<uintptr_t>(out)) % 16) == 0;
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  const auto* yp = static_cast<const __nv_bfloat16*>(y);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  for (long long at = 0; at < n; at += kAxChunk) {
+    const unsigned m = (unsigned)(n - at < kAxChunk ? n - at : kAxChunk);
+    if (aligned) {
+      constexpr unsigned kPer = kAxThreads * kAxVecs;
+      const unsigned nv = m / 8, blocks = nv ? (nv + kPer - 1) / kPer : 1;
+      const bool whole = m % (8 * kPer) == 0;
+      const auto* xv = reinterpret_cast<const uint4*>(xp + at);
+      const auto* yv = reinterpret_cast<const uint4*>(yp + at);
+      auto* ov = reinterpret_cast<uint4*>(op + at);
+      if (whole)
+        axpy2_kernel<true><<<blocks, kAxThreads, 0, st>>>(xv, yv, ov, nv, 0);
+      else
+        axpy2_kernel<false><<<blocks, kAxThreads, 0, st>>>(xv, yv, ov, nv, m % 8);
+    } else {
+      axpy2_unaligned_kernel<<<(m + kAxThreads - 1) / kAxThreads, kAxThreads, 0, st>>>(
+          xp + at, yp + at, op + at, m);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+// ---- end of the K8 region
 
 }  // namespace
 
@@ -295,20 +369,9 @@ int fused_offsets(const void* g, const void* oh, const void* w8, void* out, int 
   return cudaGetLastError();
 }
 
-// out = 2x + y, n bf16 values; vec: all three pointers 16-byte aligned.
-// A thread a 16-byte vector (vec) or a value, in blocks of 64 threads, so
-// that a small n still spreads over many SMs (65 536 values: 128 blocks);
-// the tail of n % 8 values takes the first threads again.
-int axpy2_bf16(const void* x, const void* y, void* out, long long n, int vec, void* stream) {
-  if (n <= 0) return cudaSuccess;
-  constexpr int kAxpyThreads = 64;
-  long long blocks = ((vec ? n / 8 : n) + kAxpyThreads - 1) / kAxpyThreads;
-  if (blocks < 1) blocks = 1;
-  if (blocks > 65536) blocks = 65536;
-  axpy2_kernel<<<(unsigned)blocks, kAxpyThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(y),
-      static_cast<__nv_bfloat16*>(out), n, vec);
-  return cudaGetLastError();
+// out = 2x + y, n bf16 values
+int axpy2_bf16(const void* x, const void* y, void* out, long long n, void* stream) {
+  return axpy2_launch(x, y, out, n, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -8,13 +8,22 @@ ITERS applications, `experiments/mb_flat_subm.py::scan_op`), the median of
 the time is the CPU's, not a device's. For a kernel shorter than its
 wrapper's host work, back-to-back events time the host: `kernel_ms` and
 `device_ms` read the kernel's own time from torch.profiler instead.
-`poisoned_call` makes a comparison fail a kernel that leaves outputs unwritten.
+`kernel_geometry` reads the grid, block and registers of the kernels a
+call launches from a profiler trace. `poisoned_call` makes a comparison
+fail a kernel that leaves outputs unwritten.
 """
 from __future__ import annotations
 
+import json
+import os
+import tempfile
 import time
+from pathlib import Path
 
 import torch
+
+# where a trace is written and read back: the checkout's gitignored build/
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
 ITERS = 4
 
@@ -109,6 +118,56 @@ def device_ms(fn, name: str | None, iters: int = 50) -> tuple[float, str, float]
         return events_ms, "events", events_ms
     ms, full = _per_call(us, n, iters)
     return ms, "profiler" if n == full else f"profiler:{n}/{full}", events_ms
+
+
+def launch_geometry(trace_events, name: str | None) -> list[dict]:
+    """The distinct kernel launches among a Chrome trace's events
+    (torch.profiler's `export_chrome_trace`) whose name holds `name` (every
+    kernel where name is None), in order of first appearance: name, grid,
+    block, threads, registers per thread, static and dynamic shared memory
+    bytes, and `launches`, how many records the trace holds of each."""
+    found = {}
+    for e in trace_events:
+        if e.get("cat") != "kernel" or (name is not None and name not in e.get("name", "")):
+            continue
+        a = e.get("args", {})
+        grid, block = list(a.get("grid", [0, 0, 0])), list(a.get("block", [0, 0, 0]))
+        key = (e["name"], tuple(grid), tuple(block), a.get("registers per thread"), a.get("shared memory"))
+        if key not in found:
+            threads = 1
+            for d in grid + block:
+                threads *= d
+            found[key] = dict(name=e["name"], grid=grid, block=block, threads=threads,
+                              registers=key[3], shared_bytes=key[4], launches=0)
+        found[key]["launches"] += 1
+    return list(found.values())
+
+
+def kernel_geometry(fn, name: str | None, iters: int = 20) -> list[dict]:
+    """`launch_geometry` of `iters` calls of fn, from a torch.profiler trace
+    written under the checkout's build/ and removed after reading; three
+    tries while a trace records none (a process that has profiled many
+    times loses kernel records, as `device_ms` notes)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        fd, path = tempfile.mkstemp(suffix=".json", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                found = launch_geometry(json.load(f)["traceEvents"], name)
+        finally:
+            os.unlink(path)
+        if found:
+            return found
+    return []
 
 
 def poisoned_call(fn, nbytes: int) -> torch.Tensor:

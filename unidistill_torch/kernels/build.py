@@ -69,8 +69,8 @@ SIGNATURES = {
     "fused_offsets": {
         # g, case_oh, w8, out, B, S, C, co4, stream
         "fused_offsets": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-        # x, y, out, n, vec, stream
-        "axpy2_bf16": (_P, _P, _P, _L, _I, _P),
+        # x, y, out, n, stream
+        "axpy2_bf16": (_P, _P, _P, _L, _P),
     },
     "band_gather": {
         # tab, idx, w, out, n_tab, S, row_bytes, R, band, variant, stream

@@ -93,16 +93,17 @@ def smoke_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def axpy2_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Kernel K8: 2x + y for contiguous bf16 CUDA tensors of one shape."""
+    """Kernel K8: 2x + y for contiguous bf16 CUDA tensors of one shape, any
+    size, at any 2-byte offset (16-byte vectors where all three pointers
+    allow them)."""
     for name, t in (("x", x), ("y", y)):
         if not t.is_cuda or t.dtype != torch.bfloat16 or not t.is_contiguous():
             raise ValueError(f"axpy2: {name} must be a contiguous bfloat16 CUDA tensor")
     if x.shape != y.shape:
         raise ValueError(f"axpy2: x {tuple(x.shape)} != y {tuple(y.shape)}")
     out = torch.empty_like(x)
-    vec = int(all(t.data_ptr() % 16 == 0 for t in (x, y, out)))
     err = build.library("fused_offsets").axpy2_bf16(
-        x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(), vec,
+        x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "axpy2_bf16")
     build.LAUNCHES["axpy2_bf16"] += 1
