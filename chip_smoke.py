@@ -116,9 +116,15 @@ Phases, each printed on its own line:
            per n8 tile) beside the dense product's, its bound over the
            products it runs and the dense product's (`dense_ops_ms`)
   K7 fused_offsets   on each stage's realistic inputs (the rows the fused
-           conv gathers), against its plain f32 version at 1e-4 of max
-           |ref|; kernel / plain / library (bf16 `where` select + `einsum`)
-           / bound ms; the kernels line carries s2
+           conv gathers), against its plain version at 1e-4 of max |ref|,
+           its output in a NaN-filled block, two runs bit-identical; ms
+           the kernel's device time (`ms_source`, CUDA events beside),
+           plain / library (bf16 `where` select + `einsum`) / bound ms
+           (`ops.fused_offsets.k7_work`: the lanes each case needs),
+           `bound_share`, `ms_over_library`, the launch's grid, block,
+           registers and shared bytes from a profiler trace (persistent:
+           at most one block a tile of K7_TILE_ROWS sites) and W8's
+           modelled L2 bytes; the kernels line carries s2
   subm prod vs fused   ms/conv of both paths per stage and their max |diff|
            (within 2e-2 of max |prod|)
 
@@ -191,7 +197,7 @@ TIMED_STEPS = 3
 # K6 sums exact products (bf16 x bf16 fits f32) in f32 in another order
 K4_DGRAD_TOL = {torch.bfloat16: (1e-2, 1e-4), torch.float32: (1e-4, 1e-4)}
 K6_TOL = (1e-4, 1e-4)
-# the microbenchmark kernels: K7 against its plain f32 version, as max |diff|
+# the microbenchmark kernels: K7 against its plain version, as max |diff|
 # over max |ref| (exact bf16 products summed in f32 in another order); the
 # fused conv against the separate path, as max |diff| over max |prod| (the
 # separate path rounds each of its 8 offset sums to bf16, the fused one only
@@ -1334,6 +1340,9 @@ def microbench_phases(dev, table) -> None:
     torch.cuda.empty_cache()
 
     # ---- K7 on each stage's realistic inputs ------------------------------------
+    # device time (profiler) beside CUDA events, the output in a NaN-filled
+    # block (sites of a ragged last tile left unwritten would stay NaN), two
+    # runs bit-identical
     for st in MB_STAGES:
         xs = inputs[st]
         C = xs.C
@@ -1342,15 +1351,20 @@ def microbench_phases(dev, table) -> None:
         g, oh = fo.offset_operands(tab, xs.tables, xs.S, C, torch.bfloat16)
         W8 = W6[list(_OFFS8)].contiguous()
         del tab, W6
-        got = fo.fused_offsets_cuda(g, oh, W8)
+        B, _, Sn, _ = g.shape
+        co4 = W8.shape[2]
+        k7 = lambda: fo.fused_offsets_cuda(g, oh, W8)  # noqa: E731
+        got = poisoned_call(k7, B * Sn * co4 * 4)
         ref = fo.fused_offsets_plain(g, oh, W8)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         scale = ref.abs().max().item()
         if not err <= K7_TOL_OF_MAX * scale:
             raise RuntimeError(f"K7 at {st}: max |diff| {err:.3e} > {K7_TOL_OF_MAX} x max |ref| {scale:.3e}")
+        if not torch.equal(poisoned_call(k7, B * Sn * co4 * 4), got):
+            raise RuntimeError(f"K7 at {st}: two runs on the same inputs are not bit-identical")
         del ref
-        ms = cuda_ms(lambda: fo.fused_offsets_cuda(g, oh, W8))
+        ms, source, events_ms = device_ms(k7, "fused_offsets_kernel")
         plain_ms = cuda_ms(lambda: fo.fused_offsets_plain(g, oh, W8), iters=3)
         case = oh.argmax(-1, keepdim=True)
         g2 = torch.cat([torch.zeros_like(g[..., 0:4 * C]), g[..., 0:2 * C]], -1)
@@ -1360,24 +1374,37 @@ def microbench_phases(dev, table) -> None:
             return torch.einsum("bosw,owk->bsk", win, W8)
         library_ms = cuda_ms(library, iters=3)
         del g2, case
-        B, _, Sn, _ = g.shape
-        # what this run's cases need of g: 6C lanes of a case-0 or case-1 row,
-        # 2C of a case-2 row (its other 4C window lanes are zero); the same
-        # nonzero lanes times 4co for the products
+        # what this run's cases need (`k7_work`): the g lanes each case
+        # reads (6C of a case-0 or case-1 row, 2C of a case-2 row), the
+        # window lanes that can be nonzero times 4co for the products; W8's
+        # L2 bytes when each block of K7_TILE_ROWS sites reads the stack
+        rows = fo.K7_TILE_ROWS[co4]
+        work = fo.k7_work(oh, C, co4, rows)
         n_case = oh.reshape(-1, 4).sum(0, dtype=torch.int64).tolist()
-        lanes = 6 * C * (n_case[0] + n_case[1]) + 2 * C * n_case[2]
-        nbytes = lanes * 2 + oh.numel() * 2 + W8.numel() * 2 + got.numel() * 4
-        ops = 2 * lanes * W8.shape[2]
-        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+        bytes_ms, ops_ms = work["hbm_bytes"] / HBM_BYTES_PER_S * 1e3, work["ops"] / BF16_OPS_PER_S * 1e3
+        bound = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-        log(f"K7 fused_offsets {st}", B=B, S=Sn, C=C, co=C, rows_by_case=",".join(map(str, n_case)), max_abs_err=f"{err:.3e}",
-            max_abs_ref=f"{scale:.3e}", tol=f"{K7_TOL_OF_MAX}*max|ref|", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-            library_ms=f"{library_ms:.4f}", bound_ms=f"{max(bytes_ms, ops_ms):.4f}", bound_by=bound_by,
-            bytes_ms=f"{bytes_ms:.4f}", ops_ms=f"{ops_ms:.4f}")
+        tiles = B * -(-Sn // rows)
+        found = kernel_geometry(k7, "fused_offsets_kernel<")  # not the W8 tiling kernel before it
+        if len(found) == 1:
+            (geo,) = found
+            if not 0 < geo["grid"][0] <= tiles:  # persistent blocks walk the tiles
+                raise RuntimeError(f"K7 at {st}: grid {geo['grid']} for {tiles} tiles of {rows} sites")
+            geometry = dict(grid=geo["grid"], block=geo["block"], registers=geo["registers"],
+                            shared_bytes=geo["shared_bytes"])
+        else:  # a profiler gap is no fault of the kernel's: say so and go on
+            geometry = dict(kernel=f"'{len(found)} distinct launches recorded'")
+        log(f"K7 fused_offsets {st}", B=B, S=Sn, C=C, co=C, rows_by_case=",".join(map(str, n_case)),
+            max_abs_err=f"{err:.3e}", max_abs_ref=f"{scale:.3e}", tol=f"{K7_TOL_OF_MAX}*max|ref|",
+            bit_identical=True, ms=f"{ms:.4f}", ms_source=source, events_ms=f"{events_ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=bound_by,
+            bytes_ms=f"{bytes_ms:.4f}", ops_ms=f"{ops_ms:.4f}", bound_share=f"{bound / ms:.3f}",
+            ms_over_library=f"{ms / library_ms:.3f}", tile_rows=rows, tiles=tiles,
+            w8_l2_mb=f"{work['w8_l2_bytes'] / 1e6:.1f}", hbm_mb=f"{work['hbm_bytes'] / 1e6:.1f}", **geometry)
         if st == "s2":
             table.append(dict(name="fused_offsets", route="cuda", source="unidistill_torch/csrc/fused_offsets.cu",
                               replaces="experiments/mb_pallas_fused.py:84", launches=launches["fused_offsets"],
-                              max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                              max_abs_err=err, ms=ms, ms_source=source, plain_ms=plain_ms, bound_ms=bound,
                               bound_by=bound_by, library_ms=library_ms))
         del g, oh, W8, got
         torch.cuda.empty_cache()

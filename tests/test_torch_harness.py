@@ -1,15 +1,18 @@
 """The microbenchmark tools' host-side logic on the CPU: reading kernel
-launches from a profiler trace (`experiments/harness.launch_geometry`), and
-the variant tools' edits of K8's and K10's source regions
-(`tools/k8_variants.py`, `tools/k10_variants.py`), which must apply to the
-shipped kernels so that a variant library builds on the card."""
+launches from a profiler trace (`experiments/harness.launch_geometry`), a
+call's device time from per-kernel profiler records
+(`harness._per_call`), and
+the variant tools' edits of K7's, K8's and K10's source regions
+(`tools/k7_variants.py`, `tools/k8_variants.py`, `tools/k10_variants.py`),
+which must apply to the shipped kernels so that a variant library builds
+on the card."""
 import importlib.util
 import sys
 from pathlib import Path
 
 import pytest
 
-from unidistill_torch.experiments.harness import launch_geometry
+from unidistill_torch.experiments.harness import _per_call, launch_geometry
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -43,6 +46,18 @@ def test_launch_geometry_reads_the_distinct_launches_of_a_trace():
     assert launch_geometry(events, "band_gather") == []
 
 
+def test_per_call_time_takes_each_kernel_over_its_own_records():
+    """A call of two kernels, one of which lost records: each kernel's mean
+    over the records it kept, summed, and the records counted against a
+    complete profile's."""
+    ms, kept, full = _per_call({"k7": (45 * 400.0, 45), "w8_tiles": (50 * 2.0, 50)}, 50)
+    assert ms == pytest.approx(0.402) and (kept, full) == (95, 100)
+    ms, kept, full = _per_call({"k11": (50 * 80.0, 50)}, 50)
+    assert ms == pytest.approx(0.080) and kept == full == 50
+    ms, _, full = _per_call({"gemm": (100 * 3.0, 100)}, 50)  # two launches a call
+    assert ms == pytest.approx(0.006) and full == 100
+
+
 def _tool(name):
     spec = importlib.util.spec_from_file_location(f"_tool_{name}", ROOT / "tools" / f"{name}.py")
     module = importlib.util.module_from_spec(spec)
@@ -54,7 +69,7 @@ def _tool(name):
     return module
 
 
-@pytest.mark.parametrize("tool", ["k8_variants", "k10_variants"])
+@pytest.mark.parametrize("tool", ["k7_variants", "k8_variants", "k10_variants"])
 def test_variant_edits_apply_to_the_shipped_region(tool):
     """Every variant's edits apply to the shipped region
     (`variants_source` raises otherwise), each variant gets its own
@@ -62,7 +77,10 @@ def test_variant_edits_apply_to_the_shipped_region(tool):
     changes the region's text."""
     mod = _tool(tool)
     vb = mod.vb
-    if tool == "k8_variants":
+    if tool == "k7_variants":
+        source, label, table = "fused_offsets", "K7", mod.VARIANTS
+        entry = "k7_"
+    elif tool == "k8_variants":
         source, label, table = "fused_offsets", "K8", mod.variants(256, 2)
         entry = "axpy2_"
     else:

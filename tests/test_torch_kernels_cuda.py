@@ -44,7 +44,10 @@ and against float64 central differences of the conv (f32, rtol 1e-3: the
 conv is linear, so the difference is exact up to float64 round-off; the
 kernels sum in float32). The microbenchmark kernels: K7 (fused select +
 products) at 1e-5 of max |ref| (exact bf16 products summed in f32 in
-another order) and bit-equal on a rerun; K8 (2x + y in bf16) and the band
+another order; rows whose one-hot is not a single 1.0 take the Pallas
+select's bf16 multiply-adds in both, so their windows agree bit for bit)
+and bit-equal on a rerun, on ragged tiles, at B 3, at each C class of its
+k-step and each 4co, with its output in a block just filled with NaN; K8 (2x + y in bf16) and the band
 gathers K9 (unroll 1 and 4), K10 and K11 bit-equal to their plain versions
 (each output of K11 is a sum with one nonzero term), K11 also on the
 layouts of `mb_gather_pallas.band_layout` and bit-identical on a rerun;
@@ -800,29 +803,47 @@ def test_sparse_conv_function_against_finite_differences(cuda_device):
 # ---- the microbenchmark kernels: K7-K11 ------------------------------------
 
 
-def _fused_case(device, B, S, C, seed):
+def _fused_case(device, B, S, C, co4, general, seed):
+    """Cases 0-3 at random; with `general`, one row in eight with a one-hot
+    that is not a single 1.0: random multipliers, two 1.0s, or -0.0 beside
+    a 1.0 (still a copy)."""
     rng = np.random.default_rng(seed)
     g = torch.from_numpy(rng.standard_normal((B, 8, S, 10 * C)) * 0.1).to(torch.bfloat16)
     case = rng.integers(0, 4, (B, 8, S))  # case 3: an all-zero window
-    oh = torch.from_numpy(case[..., None] == np.arange(4)).to(torch.bfloat16)
-    W8 = torch.from_numpy(rng.standard_normal((8, 6 * C, 4 * C)) * 0.05).to(torch.bfloat16)
-    return [t.to(device) for t in (g, oh, W8)]
+    oh = (case[..., None] == np.arange(4)).astype(np.float32)
+    if general:
+        pick = rng.random((B, 8, S)) < 0.125
+        kind = rng.integers(0, 3, (B, 8, S))
+        oh[pick & (kind == 0)] = rng.standard_normal((int((pick & (kind == 0)).sum()), 4))
+        oh[pick & (kind == 1)] = [1, 1, 0, 0]
+        oh[pick & (kind == 2)] = [-0.0, 0, 1, 0]
+    W8 = torch.from_numpy(rng.standard_normal((8, 6 * C, co4)) * 0.05).to(torch.bfloat16)
+    return [t.to(device) for t in (g, torch.from_numpy(oh).to(torch.bfloat16), W8)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,C", [(1, 512, 16), (2, 1024, 32), (2, 1000, 64)],
-                         ids=["C16", "C32", "C64_ragged"])
-def test_fused_offsets_kernel_matches_plain(cuda_device, B, S, C):
+@pytest.mark.parametrize("B,S,C,co4,general", [
+    (1, 512, 16, 64, False), (2, 1024, 32, 128, False), (2, 1000, 64, 256, False),
+    (3, 1000, 32, 128, True), (3, 300, 16, 64, True), (1, 777, 64, 256, True),
+    (2, 333, 48, 128, True), (1, 200, 16, 256, False), (1, 129, 96, 64, False)],
+    ids=["C16", "C32", "C64_ragged", "B3_C32_general", "B3_C16_general", "C64_general", "C48_k96",
+         "C16_n256", "C96_n64"])
+def test_fused_offsets_kernel_matches_plain(cuda_device, B, S, C, co4, general):
+    """K7 against its plain version, each output in a block just filled with
+    NaN (sites of the ragged last tile left unwritten would stay NaN),
+    launched once a call, bit-identical on a rerun."""
+    from unidistill_torch.experiments.harness import poisoned_call
     from unidistill_torch.kernels import build
-    g, oh, W8 = _fused_case(cuda_device, B, S, C, seed=S + C)
+    g, oh, W8 = _fused_case(cuda_device, B, S, C, co4, general, seed=S + C)
+    nbytes = B * S * co4 * 4
     before = build.LAUNCHES["fused_offsets"]
-    got = fused_offsets.fused_offsets(g, oh, W8)
+    got = poisoned_call(lambda: fused_offsets.fused_offsets(g, oh, W8), nbytes)
     assert build.LAUNCHES["fused_offsets"] == before + 1
     ref = fused_offsets.fused_offsets_plain(g, oh, W8)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == ref.shape
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-5 * ref.abs().max().item())
-    assert torch.equal(fused_offsets.fused_offsets(g, oh, W8), got)
+    assert torch.equal(poisoned_call(lambda: fused_offsets.fused_offsets(g, oh, W8), nbytes), got)
 
 
 @pytest.mark.cuda

@@ -10,8 +10,9 @@ against the JAX host voxeliser's coordinates exactly and its features
 within 1e-6 (float32 sums in another order); the planner's tables, the
 realistic inputs, the band gathers (T6 unroll 1 and 4, T7, T8; T8 also
 against K11's skip product, `onehot_skip_plain`) and the smoke kernel (T5)
-exactly; `fused_offsets` (T4) within 1e-5 of max |ref|
-(the same exact bf16 products summed in f32 in another order); the chunked
+exactly; `fused_offsets` (T4) within 1e-5 of max |ref| (the same exact
+bf16 products summed in f32 in another order; rows whose one-hot is not a
+single 1.0 select in the same bf16 arithmetic in both); the chunked
 subm conv in float32 within 1e-5 of max |ref| (sums in another order) and
 in bfloat16 within 2e-2 of max |ref| (a sum in another order may flip a
 bf16 rounding, 2^-8 of a value, and the per-offset bf16 sums carry it);
@@ -260,6 +261,28 @@ def test_fused_offsets_matches_pallas(B, S, C):
         ref = np.asarray(jf.fused_offsets(_to_jax(g), _to_jax(oh), _to_jax(W8), C, C))
     got = fo.fused_offsets(g, oh, W8)
     assert got.dtype == torch.float32 and tuple(got.shape) == (B, S, 4 * C)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("C", [16, 32])
+def test_fused_offsets_matches_pallas_on_rows_that_are_not_one_hot(C):
+    """Rows whose one-hot is not a single 1.0 (random multipliers, two
+    1.0s, 0.5, -1) beside one-hot rows: the plain version's select in bf16
+    arithmetic, each product and sum rounded as the Pallas kernel rounds
+    them, so the windows agree and only the f32 sums' order differs."""
+    jf = _experiment("mb_pallas_fused")
+    g, oh, W8 = _fused_inputs(1, 512, C, C, seed=C + 1)
+    rng = np.random.default_rng(C)
+    kinds = [rng.standard_normal(4), [1, 1, 0, 0], [0, 0.5, 0, 0], [0, 1, -1, 0], [1, 1, 1, 0]]
+    pick = rng.random((1, 8, 512)) < 0.5
+    oh = oh.float().numpy()
+    for n, (o, s) in enumerate(zip(*np.nonzero(pick[0]))):
+        oh[0, o, s] = kinds[n % len(kinds)]
+    oh = torch.from_numpy(oh).to(torch.bfloat16)
+    assert fo.piece_sources(oh, C)[1].sum() == pick.sum()
+    with _interpret():
+        ref = np.asarray(jf.fused_offsets(_to_jax(g), _to_jax(oh), _to_jax(W8), C, C))
+    got = fo.fused_offsets(g, oh, W8)
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5 * np.abs(ref).max())
 
 

@@ -1,6 +1,6 @@
 """Device time of ops of a source tree on the card, to compare two commits
-in one call: run `k5`, `voxelize`, `nms` and `band` once for each tree, in
-the order parent, change, change, parent.
+in one call: run `k5`, `voxelize`, `nms`, `band`, `k10`, `k8` and `k7`
+once for each tree, in the order parent, change, change, parent.
 
     python tools/op_times.py cells OUT.pt
     python tools/op_times.py k5 TREE CELLS.pt
@@ -12,6 +12,7 @@ the order parent, change, change, parent.
     python tools/op_times.py band TREE BAND_CELLS.pt
     python tools/op_times.py k10 TREE BAND_CELLS.pt
     python tools/op_times.py k8 TREE
+    python tools/op_times.py k7 TREE
 
 `cells` writes, with this tree's `serving.synthetic.nuscenes_cells`, the
 flat BEV cells of the full-width camera model (B 4, six cameras, D 112,
@@ -76,7 +77,17 @@ holding K8 to 2x + y rounded once in a NaN-filled block. It first
 prints each one's kernel as a torch.profiler trace records it (name,
 grid, block, threads, registers, values a thread;
 `harness.kernel_geometry`) and the SASS instruction count of TREE's K8
-kernel. The timing helpers are this checkout's
+kernel.
+
+`k7` times TREE's K7 (`fused_offsets_cuda`) on the three stages'
+realistic inputs (four frames from `experiments/realistic.realistic_inputs`,
+seeded and built as `chip_smoke.py` [K7] builds them), after holding it to
+TREE's plain version within 1e-4 of max |ref| in a NaN-filled block and
+two runs bit-identical: its launches (grid, block, registers, shared
+bytes; `harness.kernel_geometry`), then four rounds of `ms` as `band`'s and
+`events_ms` a stage, then each stage's median, least and largest `ms`.
+
+The timing helpers are this checkout's
 (`unidistill_torch/experiments/harness.py`), whatever TREE is.
 """
 import dataclasses
@@ -371,9 +382,52 @@ def k8(tree):
                               min_ms=round(ts[0], 7), max_ms=round(ts[-1], 7))), flush=True)
 
 
+K7_STAGES = ("s2", "s0", "s3")
+
+
+def k7(tree):
+    sys.path.insert(0, tree)
+    from unidistill_torch.configs.nuscenes import lidar_exp
+    from unidistill_torch.experiments.realistic import realistic_inputs
+    from unidistill_torch.ops import fused_offsets as fo
+    from unidistill_torch.ops.sparse_conv_chunked import _OFFS8, _band_weight, _w_zyx, _window_table
+    inputs, _ = realistic_inputs(lidar_exp().model, K7_STAGES, device=torch.device("cuda"))
+    for st in K7_STAGES:
+        xs = inputs[st]
+        tab = _window_table(xs.feats, xs.occ_bits, xs.colkey, xs.chunk, xs.valid, torch.bfloat16)
+        W6 = _band_weight(_w_zyx(xs.weight), xs.C, xs.C, 6, 1, torch.bfloat16)
+        g, oh = fo.offset_operands(tab, xs.tables, xs.S, xs.C, torch.bfloat16)
+        W8 = W6[list(_OFFS8)].contiguous()
+        del tab, W6
+        fn = lambda: fo.fused_offsets_cuda(g, oh, W8)  # noqa: E731
+        nbytes = g.shape[0] * xs.S * W8.shape[2] * 4
+        got = poisoned_call(fn, nbytes)
+        ref = fo.fused_offsets_plain(g, oh, W8)
+        err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+        if not err <= 1e-4 * scale:
+            raise RuntimeError(f"K7 at {st}: max |diff| {err:.3e} > 1e-4 x max |ref| {scale:.3e}")
+        if not torch.equal(poisoned_call(fn, nbytes), got):
+            raise RuntimeError(f"K7 at {st}: two runs on the same inputs are not bit-identical")
+        del got, ref
+        for geo in kernel_geometry(fn, "fused_offsets_kernel"):
+            print(json.dumps(dict(tree=tree, op="K7", stage=st, max_abs_err=err, max_abs_ref=scale,
+                                  **{k: geo[k] for k in ("grid", "block", "registers", "shared_bytes")})), flush=True)
+        ts = []
+        for rnd in range(4):
+            ms, source, events_ms = device_ms(fn, "fused_offsets_kernel")
+            ts.append(ms)
+            print(json.dumps(dict(tree=tree, op="K7", stage=st, round=rnd, ms=round(ms, 5), ms_source=source,
+                                  events_ms=round(events_ms, 5))), flush=True)
+        ts.sort()
+        print(json.dumps(dict(tree=tree, op="K7", stage=st, rounds=len(ts), median_ms=round((ts[1] + ts[2]) / 2, 5),
+                              min_ms=round(ts[0], 5), max_ms=round(ts[-1], 5))), flush=True)
+        del g, oh, W8
+        torch.cuda.empty_cache()
+
+
 if __name__ == "__main__":
     if not torch.cuda.is_available():
         sys.exit("op_times: needs a CUDA device")
     print(_card(), flush=True)
     {"cells": cells, "k5": k5, "voxelize": voxelize, "predict": predict, "nms_cells": nms_cells,
-     "nms": nms, "band_cells": band_cells, "band": band, "k10": k10, "k8": k8}[sys.argv[1]](*sys.argv[2:])
+     "nms": nms, "band_cells": band_cells, "band": band, "k10": k10, "k8": k8, "k7": k7}[sys.argv[1]](*sys.argv[2:])

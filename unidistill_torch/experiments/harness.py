@@ -67,11 +67,11 @@ def timed_ms(fn, device: torch.device, iters: int = ITERS, reps: int = 5) -> flo
     return ts[len(ts) // 2]
 
 
-def _profiled(fn, name: str | None, iters: int) -> tuple[float, int]:
-    """(µs, records): the device time and the number of kernel records of
-    the kernels whose name holds `name` (of every kernel where name is
-    None) in one torch.profiler profile of `iters` calls of fn; three tries
-    while a profile records none."""
+def _profiled(fn, name: str | None, iters: int) -> dict[str, tuple[float, int]]:
+    """{kernel: (µs, records)}: the device time and the number of kernel
+    records of each kernel whose name holds `name` (every kernel where name
+    is None) in one torch.profiler profile of `iters` calls of fn; three
+    tries while a profile records none."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -80,21 +80,27 @@ def _profiled(fn, name: str | None, iters: int) -> tuple[float, int]:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        timed = [e for e in prof.key_averages()
-                 if (name is None or name in e.key) and getattr(e, "self_device_time_total", 0.0) > 0]
-        n = sum(e.count for e in timed)
-        if n:
-            return sum(e.self_device_time_total for e in timed), n
-    return 0.0, 0
+        timed = {e.key: (e.self_device_time_total, e.count) for e in prof.key_averages()
+                 if (name is None or name in e.key) and getattr(e, "self_device_time_total", 0.0) > 0}
+        if timed:
+            return timed
+    return {}
 
 
-def _per_call(us: float, n: int, iters: int) -> tuple[float, int]:
-    """(ms a call, records a complete profile holds): the mean over the
-    records kept, times the kernels a call launches. A process that has
-    profiled many times loses some records (`device_ms` labels it), so the
-    sum over `iters` would read low."""
-    per_call = max(1, round(n / iters))
-    return us / n * per_call / 1e3, per_call * iters
+def _per_call(records: dict[str, tuple[float, int]], iters: int) -> tuple[float, int, int]:
+    """(ms a call, records kept, records a complete profile holds): each
+    kernel's mean over its records kept, times the launches of it a call
+    makes, summed over the kernels. A process that has profiled many times
+    loses some records (`device_ms` labels it), so a sum over `iters`
+    would read low, and one mean over kernels of unlike length would lean
+    to the kernel that kept more."""
+    ms = kept = full = 0
+    for us, n in records.values():
+        per_call = max(1, round(n / iters))
+        ms += us / n * per_call / 1e3
+        kept += n
+        full += per_call * iters
+    return ms, kept, full
 
 
 def kernel_ms(fn, name: str | None, iters: int = 50) -> float | None:
@@ -102,8 +108,8 @@ def kernel_ms(fn, name: str | None, iters: int = 50) -> float | None:
     (every kernel it launches where name is None), from torch.profiler's
     CUDA activity, with no host gaps between launches. None if three
     profiles in a row recorded no device time."""
-    us, n = _profiled(fn, name, iters)
-    return _per_call(us, n, iters)[0] if n else None
+    records = _profiled(fn, name, iters)
+    return _per_call(records, iters)[0] if records else None
 
 
 def device_ms(fn, name: str | None, iters: int = 50) -> tuple[float, str, float]:
@@ -113,11 +119,11 @@ def device_ms(fn, name: str | None, iters: int = 50) -> tuple[float, str, float]
     where the profile kept N of its M kernel records, or "events";
     events_ms beside."""
     events_ms = timed_ms(fn, torch.device("cuda"), iters=iters, reps=1)
-    us, n = _profiled(fn, name, iters)
-    if not n:
+    records = _profiled(fn, name, iters)
+    if not records:
         return events_ms, "events", events_ms
-    ms, full = _per_call(us, n, iters)
-    return ms, "profiler" if n == full else f"profiler:{n}/{full}", events_ms
+    ms, kept, full = _per_call(records, iters)
+    return ms, "profiler" if kept == full else f"profiler:{kept}/{full}", events_ms
 
 
 def launch_geometry(trace_events, name: str | None) -> list[dict]:

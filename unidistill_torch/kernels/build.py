@@ -67,8 +67,8 @@ SIGNATURES = {
         "sparse_conv_wgrad_blocks_per_sm": (_I, _I, _P),
     },
     "fused_offsets": {
-        # g, case_oh, w8, out, B, S, C, co4, stream
-        "fused_offsets": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+        # g, case_oh, w8, w8 tiles (scratch), out, B, S, C, co4, stream
+        "fused_offsets": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
         # x, y, out, n, stream
         "axpy2_bf16": (_P, _P, _P, _L, _P),
     },
