@@ -127,6 +127,24 @@ Phases, each printed on its own line:
            modelled L2 bytes; the kernels line carries s2
   subm prod vs fused   ms/conv of both paths per stage and their max |diff|
            (within 2e-2 of max |prod|)
+  cli distill lidar->camera   the launchers' CLIs at full width, in a
+           temporary directory: `serving.synthetic.write_nuscenes` writes an
+           on-disk nuScenes (12 training and 4 validation frames, six
+           900x1600 JPEGs and 10 LiDAR sweeps each, GT boxes of the ray-cast
+           scenes); a seeded LiDAR teacher, BatchNorm calibrated on the
+           validation frames, is saved with `checkpoint.save_checkpoint`;
+           then `run_distill_cli("lidar", "camera")` trains one epoch (batch
+           4, 4 spawned loader workers, CBGS off), resumes to a second epoch
+           (validation at its end), and `run_cli(camera_exp())` evaluates the
+           checkpoint (-e, the native scorer), each run with every launch
+           count set to 0 just before and read just after. Checks: K4 21
+           times and K1, K5 once a train step, K1, K2, K3 in validation and
+           -e; finite losses; the student changed and the teacher did not;
+           the resumed run trained only the second epoch; the last
+           checkpoint equals the trained model bit for bit; mAP, NDS and the
+           five TP errors finite; no loader worker left; no file written
+           under the repository. Prints s/step and the loader wait a step
+           from metrics.jsonl, and the phase's wall seconds
 
 Any failed phase raises, so the script exits non-zero. The last three lines
 are the kernel table (JSON, K1-K11, K7's row at s2; K4's ms, plain_ms,
@@ -215,6 +233,12 @@ K5_TOL = dict(rtol=1e-5, atol=1e-5)
 # ~70 layers (the CPU test against JAX holds 2e-3 with the same weights)
 TRAIN_TINY_LOSS_RTOL = 1e-3
 TRAIN_TINY_GRAD_TOL = 5e-3
+# the launcher phase's on-disk synthetic nuScenes: 12 training frames (three
+# steps of batch 4 an epoch; CBGS off, since on a 12-frame set of two classes
+# it keeps 4 frames) and 4 validation frames, loaded by 4 worker processes
+CLI_TRAIN_FRAMES = 12
+CLI_VAL_FRAMES = 4
+CLI_WORKERS = 4
 
 
 def log(phase, **kv):
@@ -1198,6 +1222,174 @@ def fusion_phases(dev) -> None:
         torch.cuda.empty_cache()
 
 
+def repo_files() -> dict:
+    """Every file under the checkout but bytecode caches and the kernel
+    build, with its size and modification time."""
+    out = {}
+    for path in ROOT.rglob("*"):
+        rel = path.relative_to(ROOT)
+        if path.is_file() and "__pycache__" not in rel.parts and rel.parts[:1] != ("build",):
+            st = path.stat()
+            out[str(rel)] = (st.st_size, st.st_mtime_ns)
+    return out
+
+
+def cli_run(phase, fn, argv, want):
+    """One launcher run (`fn(argv=...)`) with every launch count set to 0
+    just before and read just after; each kernel in `want` must launch
+    exactly that often (a count) or at least once (None). Returns the
+    trainer, the launches and the logged step records; no loader worker
+    may outlive the run."""
+    import gc
+    import multiprocessing
+    from unidistill_torch.kernels import build
+    build.reset_launches()
+    t0 = time.time()
+    trainer = fn(argv=argv)
+    seconds = time.time() - t0
+    launches = dict(build.LAUNCHES)
+    gc.collect()
+    if multiprocessing.active_children():
+        raise RuntimeError(f"{phase}: loader workers still running: {multiprocessing.active_children()}")
+    with open(Path(trainer.output_dir) / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    steps_logged = [r for r in records if "step" in r]
+    log(phase, seconds=f"{seconds:.2f}", launches=json.dumps(launches, sort_keys=True),
+        logged_steps=[r["step"] for r in steps_logged],
+        s_per_step=[round(r["sec_per_step"], 4) for r in steps_logged],
+        loader_wait_s_per_step=[round(r["loader_wait_sec_per_step"], 4) for r in steps_logged],
+        **{k: f"{v:.6g}" for k, v in sorted((steps_logged[-1] if steps_logged else {}).items())
+           if k.startswith("loss")})
+    for k, n in want.items():
+        if (launches.get(k, 0) == 0) if n is None else (launches.get(k, 0) != n):
+            raise RuntimeError(f"{phase}: kernel {k} launched {launches.get(k, 0)} times, expected "
+                               f"{'at least once' if n is None else n}")
+    for r in steps_logged:
+        bad = [k for k, v in r.items() if isinstance(v, float) and not math.isfinite(v)]
+        if bad:
+            raise RuntimeError(f"{phase}: non-finite metrics {bad} at step {r['step']}")
+    return trainer, launches, steps_logged
+
+
+def cli_data(tmp: Path, n_train: int, n_val: int, dev):
+    """The launcher phase's inputs under `tmp`: an on-disk synthetic
+    nuScenes (`serving.synthetic.write_nuscenes`, seed 50) and a seeded
+    LiDAR teacher, BatchNorm calibrated on the validation frames as the
+    loader voxelises them, saved as a checkpoint in tmp/teacher. Returns the
+    data root, the teacher's state dict on the CPU, and the seconds of the
+    write and of the teacher."""
+    from unidistill_torch.configs.nuscenes import DataConfig, lidar_exp
+    from unidistill_torch.data.collate import collate
+    from unidistill_torch.data.dataset import NuScenesDataset
+    from unidistill_torch.models.bevfusion import BEVFusionCenterHead
+    from unidistill_torch.serving.synthetic import calibrate_batchnorm, random_state_dict, write_nuscenes
+    from unidistill_torch.training import checkpoint as ckpt_lib
+    from unidistill_torch.training.steps import model_inputs
+
+    t0 = time.time()
+    root = write_nuscenes(str(tmp / "nuscenes"), n_train, n_val, seed=50)
+    write_s = time.time() - t0
+    t_cfg = lidar_exp().model
+    t0 = time.time()
+    val = NuScenesDataset(DataConfig(root_path=root), t_cfg, "validation")
+    frames = collate([val[i] for i in range(len(val))])
+    teacher = BEVFusionCenterHead(t_cfg)
+    teacher.load_state_dict(random_state_dict(t_cfg, seed=10))
+    teacher.to(dev)
+    calibrate_batchnorm(teacher, model_inputs(frames, t_cfg, dev, training=False))
+    ckpt_lib.save_checkpoint(str(tmp / "teacher"), 0, teacher)
+    saved = {k: v.detach().cpu().clone() for k, v in teacher.state_dict().items()}
+    del teacher, frames
+    torch.cuda.empty_cache()
+    return root, saved, write_s, time.time() - t0
+
+
+def cli_phases(dev) -> None:
+    """[cli distill lidar->camera]: the camera<-LiDAR launcher's CLI at full
+    width on an on-disk synthetic nuScenes in a temporary directory: one
+    epoch from a saved LiDAR teacher, a resume to the second epoch (with
+    validation), then the camera launcher's CLI with -e on the checkpoint."""
+    import tempfile
+    from unidistill_torch.configs.nuscenes import camera_exp
+    from unidistill_torch.exps.base_cli import run_cli
+    from unidistill_torch.exps.distill_cli import run_distill_cli
+    from unidistill_torch.models.bevfusion import BEVFusionCenterHead
+    from unidistill_torch.training import checkpoint as ckpt_lib
+    from unidistill_torch.training.loop import init_params
+
+    phase = "cli distill lidar->camera"
+    t_phase = time.time()
+    before = repo_files()
+    with tempfile.TemporaryDirectory(prefix="unidistill_cli_") as tmp:
+        tmp = Path(tmp)
+        root, saved_teacher, write_s, teacher_s = cli_data(tmp, CLI_TRAIN_FRAMES, CLI_VAL_FRAMES, dev)
+        log(f"{phase} data", train_frames=CLI_TRAIN_FRAMES, val_frames=CLI_VAL_FRAMES, cameras=6,
+            image="900x1600 jpeg", sweeps=10, write_seconds=f"{write_s:.2f}",
+            teacher_seconds=f"{teacher_s:.2f}")
+
+        steps_per_epoch = CLI_TRAIN_FRAMES // BATCH
+        common = ["-b", str(BATCH), "--num_workers", str(CLI_WORKERS), "--data_root", root,
+                  "--exp_options", "data.use_cbgs=False", "train.eval_interval=2"]
+        per_step = dict(sparse_conv_fwd=SPARSE_CONVS_PER_REQUEST * steps_per_epoch,
+                        bev_pool_fwd=steps_per_epoch, bev_pool_bwd=steps_per_epoch)
+        with contextlib.chdir(tmp):
+            # ---- one epoch ------------------------------------------------------
+            tr1, _, logged = cli_run(f"{phase} train", lambda argv: run_distill_cli("lidar", "camera", argv),
+                                     common + ["--max_epochs", "1", "--teacher_ckpt", str(tmp / "teacher")],
+                                     dict(per_step, rotated_iou_mask=0, nms_greedy_select=0))
+            if [r["step"] for r in logged] != [steps_per_epoch]:
+                raise RuntimeError(f"{phase}: one epoch logged steps {[r['step'] for r in logged]}")
+            check_frozen(phase, tr1.teacher)
+            for k, v in tr1.teacher.state_dict().items():
+                if not torch.equal(v.cpu(), saved_teacher[k]):
+                    raise RuntimeError(f"{phase}: the teacher's {k} changed")
+            ckpt1 = ckpt_lib.restore_checkpoint_any(str(Path(tr1.output_dir) / "ckpt"))
+            start = init_params(BEVFusionCenterHead(camera_exp().model), seed=0).state_dict()
+            change = max((ckpt1["model"][k].float() - v.float()).abs().max().item()
+                         for k, v in start.items() if v.is_floating_point())
+            if not (ckpt1["step"] == steps_per_epoch and change > 0):
+                raise RuntimeError(f"{phase}: step {ckpt1['step']}, parameter change {change}")
+
+            # ---- resume to two epochs: only the second trains ---------------------
+            tr2, _, logged = cli_run(
+                f"{phase} resume", lambda argv: run_distill_cli("lidar", "camera", argv),
+                common + ["--max_epochs", "2", "--teacher_ckpt", str(tmp / "teacher"),
+                          "--ckpt_path", str(Path(tr1.output_dir) / "ckpt")],
+                dict(per_step, bev_pool_fwd=None, rotated_iou_mask=None, nms_greedy_select=None))
+            if [r["step"] for r in logged] != [2 * steps_per_epoch]:
+                raise RuntimeError(f"{phase}: the resumed run logged steps {[r['step'] for r in logged]}, "
+                                   f"expected [{2 * steps_per_epoch}]")
+            ckpt2 = ckpt_lib.restore_checkpoint_any(str(Path(tr2.output_dir) / "ckpt"))
+            if ckpt2["step"] != 2 * steps_per_epoch:
+                raise RuntimeError(f"{phase}: the resumed run ended at step {ckpt2['step']}")
+            for k, v in tr2.model.state_dict().items():
+                if not torch.equal(v.cpu(), ckpt2["model"][k]):
+                    raise RuntimeError(f"{phase}: the last checkpoint's {k} differs from the trained model's")
+            with open(Path(tr2.output_dir) / "metrics.jsonl") as f:
+                val_recs = [r for r in map(json.loads, f) if r.get("event") == "val"]
+            if len(val_recs) != 1 or "eval_error" in val_recs[0]:
+                raise RuntimeError(f"{phase}: validation records {val_recs}")
+
+            # ---- -e with the camera launcher's CLI ------------------------------------
+            tr3, _, _ = cli_run(f"{phase} evaluate", lambda argv: run_cli(camera_exp(), argv=argv),
+                                ["-e", "--ckpt_path", str(Path(tr2.output_dir) / "ckpt"), "-b", str(BATCH),
+                                 "--num_workers", str(CLI_WORKERS), "--data_root", root],
+                                dict(bev_pool_fwd=None, rotated_iou_mask=None, nms_greedy_select=None,
+                                     sparse_conv_fwd=0, bev_pool_bwd=0))
+            with open(Path(tr3.output_dir) / "nuscenes" / "metrics_summary.json") as f:
+                scores = json.load(f)
+        numbers = dict(mAP=scores["mean_ap"], NDS=scores["nd_score"], **scores["tp_errors"])
+        bad = [k for k, v in numbers.items() if not math.isfinite(v)]
+        if bad or len(numbers) != 7:
+            raise RuntimeError(f"{phase}: scores {numbers}")
+        log(f"{phase} scores", **{k: f"{v:.6g}" for k, v in numbers.items()},
+            val_mAP=f"{val_recs[0]['mean_ap']:.6g}")
+    written = sorted(set(repo_files().items()) - set(before.items()))
+    if written:
+        raise RuntimeError(f"{phase}: files written under the repository: {written[:10]}")
+    log(phase, wall_seconds=f"{time.time() - t_phase:.2f}", smi=repr(nvidia_smi_line()))
+
+
 def microbench_phases(dev, table) -> None:
     """This slice's path: the sparse-conv microbenchmarks' entry points
     (smoke, the band gathers, the subm conv's prod and fused paths at the
@@ -1451,6 +1643,8 @@ def main() -> int:
     lidar_train_phases(dev, table)
     torch.cuda.empty_cache()
     fusion_phases(dev)
+    torch.cuda.empty_cache()
+    cli_phases(dev)
     torch.cuda.empty_cache()
     microbench_phases(dev, table)
 

@@ -36,7 +36,7 @@ def test_importing_the_port_pulls_in_no_jax():
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 46, res.stdout  # the training and microbenchmark modules included
+    assert n_modules >= 66, res.stdout  # the training, data, CLI and microbenchmark modules included
 
 
 def _sources():
@@ -83,6 +83,38 @@ def test_config_copy_matches_jax(make):
         assert m_ours.feature_map_size == m_ref.feature_map_size
         for prop in ("depth_channels", "feat_hw", "bev_hw"):
             assert getattr(m_ours.camera_encoder, prop) == getattr(m_ref.camera_encoder, prop)
+
+
+@pytest.mark.parametrize("make,overrides", [
+    (lambda m: m.lidar_exp(), {"model.det_head.iou_weight": 2, "model.grid_size": [720, 720, 1],
+                               "data.use_cbgs": "true", "train.max_epochs": 7}),
+    (lambda m: m.distill_exp("lidar", "camera"), {"train.lr": 0.0002, "data.use_cbgs": False,
+                                                  "data.root_path": "/some/path", "train.eval_interval": "3",
+                                                  "distill.w_feature": 1, "train.seed": 5}),
+    (lambda m: m.camera_exp(), {"model.camera_encoder.final_dim": (128, 352), "train.lr_milestones": [4],
+                                "model.caps.max_points": 1000.0, "data.to_rgb": "False"}),
+    (lambda m: m.fusion_exp(), {}),
+], ids=["lidar", "distill", "camera", "none"])
+def test_apply_overrides_matches_jax(make, overrides):
+    """`--exp_options` overrides: nested, with the field's type coerced
+    (int -> float, list -> tuple, strings -> bool / int), field for field
+    the JAX result; the original config is left as it was."""
+    base = make(pcfg)
+    ours, ref = pcfg.apply_overrides(base, overrides), jcfg.apply_overrides(make(jcfg), overrides)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert base == make(pcfg)
+    for k in overrides:
+        a, b = ours, ref
+        for part in k.split("."):
+            a, b = getattr(a, part), getattr(b, part)
+        assert type(a) is type(b), k
+
+
+@pytest.mark.parametrize("key", ["model.det_head.not_a_field", "nothing", "train.lr.x"])
+def test_apply_overrides_unknown_key_raises_as_jax(key):
+    for m in (pcfg, jcfg):
+        with pytest.raises((TypeError, AttributeError)):
+            m.apply_overrides(m.lidar_exp(), {key: 1})
 
 
 def test_constants_match_jax():

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 POINT_CLOUD_RANGE = (-54.0, -54.0, -5.0, 54.0, 54.0, 3.0)
 VOXEL_SIZE = (0.075, 0.075, 0.2)
@@ -267,6 +267,30 @@ class ExpConfig:
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     distill: Optional[DistillConfig] = None
+
+
+def _replace_nested(cfg: Any, path: str, value: Any) -> Any:
+    """Functionally set `a.b.c` on nested frozen dataclasses."""
+    head, _, rest = path.partition(".")
+    if not rest:
+        cur = getattr(cfg, head)
+        if cur is not None and not isinstance(cur, (dict, type(None))):
+            ftype = type(cur)
+            if ftype in (int, float, bool, str) and not isinstance(value, ftype):
+                value = ftype(value) if ftype is not bool else value in (True, "True", "true", 1)
+            elif isinstance(cur, tuple) and not isinstance(value, tuple):
+                value = tuple(value)
+        return dataclasses.replace(cfg, **{head: value})
+    return dataclasses.replace(
+        cfg, **{head: _replace_nested(getattr(cfg, head), rest, value)}
+    )
+
+
+def apply_overrides(cfg: ExpConfig, overrides: Dict[str, Any]) -> ExpConfig:
+    """Apply `--exp_options k.l=v` overrides (ref DictAction, utils/__init__.py:4-93)."""
+    for k, v in overrides.items():
+        cfg = _replace_nested(cfg, k, v)
+    return cfg
 
 
 def lidar_exp() -> ExpConfig:

@@ -1,1 +1,2 @@
-"""Host-side (numpy) data preparation: the chunked layout's topology tables."""
+"""Host-side (numpy) data preparation: the nuScenes dataset and loader,
+the submission writer and scorer, and the chunked layout's topology tables."""

@@ -21,7 +21,7 @@ import torch
 
 from unidistill_torch.data.topology_host import plan_frame_topology, stage_shapes
 from unidistill_torch.ops.sparse_conv_chunked import ChunkedTables, bits_of_occ, zmask
-from unidistill_torch.ops.voxelize import voxelize
+from unidistill_torch.ops.voxelize import voxelize_frame
 
 B = 4
 STAGE_C = {"s0": 16, "s2": 32, "s3": 64}  # channels of the encoder's stages
@@ -72,19 +72,6 @@ def realistic_cloud(rng: np.random.RandomState, n: int = 250_000) -> np.ndarray:
     pts[k:, 2] = rng.uniform(-1.8, 4.0, rest)
     pts[:, 3] = rng.uniform(0, 255, n)
     return pts
-
-
-def voxelize_frame(points: np.ndarray, mask: np.ndarray, cfg, training: bool):
-    """One frame [P, C] with its mask [P], voxelised on the host by
-    `ops.voxelize.voxelize` at the config's train or eval voxel cap:
-    (feats [V, C] f32, coords [V, 3] int32 (z, y, x), -1 on unused slots),
-    as the JAX package's `data/voxelize_host.py::voxelize_frame`."""
-    caps = cfg.caps
-    feats, coords = voxelize(
-        torch.from_numpy(points)[None], torch.from_numpy(mask)[None], cfg.point_cloud_range,
-        cfg.voxel_size, cfg.grid_size, caps.max_voxels_train if training else caps.max_voxels_eval,
-        caps.max_points_per_voxel)
-    return feats[0].numpy(), coords[0].numpy()
 
 
 def plan_frames(cfg, seed: int = 0, batch: int = B):

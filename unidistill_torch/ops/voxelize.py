@@ -20,11 +20,15 @@ its layouts and semantics:
 Plain PyTorch: the sort, scan and gathers have no TPU kernel behind them in
 the JAX package (they are XLA there). No sum uses atomics, so the result is
 the same from run to run on the card and equals the CPU's bit for bit.
+
+`voxelize_frame` runs it on the CPU for one frame of the data loader, as the
+JAX package's host voxeliser `data/voxelize_host.py::voxelize_frame` does.
 """
 from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -86,3 +90,16 @@ def voxelize(
     first = torch.gather(svc, 1, start.clamp(max=P - 1)[..., None].expand(B, V, 3))
     coords = torch.where(cnts[..., None] > 0, first.flip(-1).to(torch.int32), -1)
     return feats, coords
+
+
+def voxelize_frame(points: np.ndarray, mask: np.ndarray, cfg, training: bool):
+    """One frame [P, C] with its mask [P], voxelised on the CPU by
+    `voxelize` at the config's train or eval voxel cap:
+    (feats [V, C] f32, coords [V, 3] int32 (z, y, x), -1 on unused slots),
+    as the JAX package's `data/voxelize_host.py::voxelize_frame`."""
+    caps = cfg.caps
+    feats, coords = voxelize(
+        torch.from_numpy(points)[None], torch.from_numpy(mask)[None], cfg.point_cloud_range,
+        cfg.voxel_size, cfg.grid_size, caps.max_voxels_train if training else caps.max_voxels_eval,
+        caps.max_points_per_voxel)
+    return feats[0].numpy(), coords[0].numpy()

@@ -29,13 +29,18 @@ kernels: candidates clustered around objects, or every box on one centre.
 """
 from __future__ import annotations
 
+import os
+import pickle
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from PIL import Image
 from torch import nn
 
 from unidistill_torch.configs.nuscenes import CLASS_TO_IDX, DataConfig, ModelConfig
+from unidistill_torch.data.evaluate import _rotmat_to_quat
 from unidistill_torch.layers.lidar_encoder import SubMConv
 from unidistill_torch.layers.lss import make_frustum, voxel_coords
 from unidistill_torch.models.bevfusion import BEVFusionCenterHead
@@ -284,29 +289,37 @@ def lidar_batch(cfg: ModelConfig, B: int, seed: int) -> Dict:
     return dict(points=points, points_mask=mask)
 
 
+def _scene_sweeps(rng: np.random.RandomState, n_sweeps: int):
+    """A `_lidar_scene` and `n_sweeps` sweeps of it, each [M, 5] (x, y, z,
+    intensity, Δt) in the key frame's LiDAR frame: sweep s taken 0.05·s
+    seconds earlier, 0.5·s metres behind."""
+    elev = np.deg2rad(np.linspace(*LIDAR_ELEVATION_DEG, LIDAR_BEAMS))
+    boxes = _lidar_scene(rng)
+    sweeps = []
+    for s in range(n_sweeps):
+        az = rng.uniform(0, 2 * np.pi) + np.linspace(0, 2 * np.pi, LIDAR_AZIMUTH_STEPS, endpoint=False)
+        e, a = np.meshgrid(elev, az, indexing="ij")
+        dirs = np.stack([np.cos(e) * np.cos(a), np.cos(e) * np.sin(a), np.sin(e)], -1).reshape(-1, 3)
+        origin = np.array([-LIDAR_EGO_STEP * s, 0.0, 0.0])
+        t = _cast_rays(origin, dirs, boxes)
+        keep = np.isfinite(t) & (rng.rand(t.shape[0]) >= LIDAR_DROPOUT)
+        t = t[keep] + rng.normal(0, 0.02, keep.sum())
+        xyz = origin + t[:, None] * dirs[keep]
+        sweeps.append(np.concatenate([xyz, rng.uniform(0, 255, (len(t), 1)),
+                                      np.full((len(t), 1), LIDAR_SWEEP_DT * s)], 1))
+    return boxes, sweeps
+
+
 def _lidar_clouds(cfg: ModelConfig, B: int, seed: int):
     """`lidar_batch`'s clouds and the scene of each sample."""
     rng = np.random.RandomState(seed)
     P = cfg.caps.max_points
-    elev = np.deg2rad(np.linspace(*LIDAR_ELEVATION_DEG, LIDAR_BEAMS))
     points = np.zeros((B, P, 5), np.float32)
     mask = np.zeros((B, P), bool)
     scenes = []
     for b in range(B):
-        boxes = _lidar_scene(rng)
+        boxes, sweeps = _scene_sweeps(rng, LIDAR_SWEEPS)
         scenes.append(boxes)
-        sweeps = []
-        for s in range(LIDAR_SWEEPS):
-            az = rng.uniform(0, 2 * np.pi) + np.linspace(0, 2 * np.pi, LIDAR_AZIMUTH_STEPS, endpoint=False)
-            e, a = np.meshgrid(elev, az, indexing="ij")
-            dirs = np.stack([np.cos(e) * np.cos(a), np.cos(e) * np.sin(a), np.sin(e)], -1).reshape(-1, 3)
-            origin = np.array([-LIDAR_EGO_STEP * s, 0.0, 0.0])
-            t = _cast_rays(origin, dirs, boxes)
-            keep = np.isfinite(t) & (rng.rand(t.shape[0]) >= LIDAR_DROPOUT)
-            t = t[keep] + rng.normal(0, 0.02, keep.sum())
-            xyz = origin + t[:, None] * dirs[keep]
-            sweeps.append(np.concatenate([xyz, rng.uniform(0, 255, (len(t), 1)),
-                                          np.full((len(t), 1), LIDAR_SWEEP_DT * s)], 1))
         cloud = np.concatenate(sweeps)
         if len(cloud) > P:
             cloud = cloud[np.sort(rng.choice(len(cloud), P, replace=False))]
@@ -419,3 +432,89 @@ def nms_lanes(kind: str, seed: int, L: int = 24, C: int = 512, objects: int = 40
     else:
         raise ValueError(f"unknown NMS layout {kind!r}")
     return bev.astype(np.float32), valid
+
+
+# the six nuScenes cameras: yaw of the optical axis from the ego x axis
+CAMERA_YAW_DEG = {"CAM_FRONT": 0.0, "CAM_FRONT_LEFT": 55.0, "CAM_FRONT_RIGHT": -55.0,
+                  "CAM_BACK": 180.0, "CAM_BACK_LEFT": 110.0, "CAM_BACK_RIGHT": -110.0}
+CAMERA_HEIGHT = -0.3  # metres, in the LiDAR frame (1.54 m above the ground)
+SCENE_CATEGORY = {CLASS_TO_IDX["car"]: ("vehicle.car", "vehicle.parked"),
+                  CLASS_TO_IDX["pedestrian"]: ("human.pedestrian.adult", "pedestrian.standing")}
+WRITE_THREADS = 8  # `write_nuscenes` casts and encodes this many frames at once
+
+
+def _points_in_boxes(xyz: np.ndarray, boxes: np.ndarray) -> np.ndarray:
+    """Number of points inside each box [M, 9] (x, y, z, dx, dy, dz, yaw, ...)."""
+    d = xyz[None, :, :3] - boxes[:, None, :3]
+    c, s = np.cos(boxes[:, 6:7]), np.sin(boxes[:, 6:7])
+    local = np.stack([c * d[..., 0] + s * d[..., 1], -s * d[..., 0] + c * d[..., 1], d[..., 2]], -1)
+    return (np.abs(local) <= boxes[:, None, 3:6] / 2).all(-1).sum(1)
+
+
+def _write_frame(root: str, token: str, seed: int) -> Dict:
+    """One key frame on disk: 11 LiDAR turns of a `_lidar_scene` (the key
+    frame and 10 sweeps, each in its own LiDAR frame), six 900×1600 JPEGs;
+    returns its info record."""
+    rng = np.random.RandomState(seed)
+    boxes, turns = _scene_sweeps(rng, 1 + LIDAR_SWEEPS)
+    key_ts = 1e6 * (1 + seed % 1000)
+    lidar_file = f"samples/LIDAR_TOP/{token}.bin"
+    np.concatenate([turns[0][:, :4], np.zeros((len(turns[0]), 1))], 1).astype(np.float32).tofile(
+        os.path.join(root, lidar_file))
+    sweeps = []
+    for s, turn in enumerate(turns[1:], 1):
+        origin = np.array([-LIDAR_EGO_STEP * s, 0.0, 0.0])
+        f = f"sweeps/LIDAR_TOP/{token}_{s}.bin"
+        np.concatenate([turn[:, :3] - origin, turn[:, 3:4], np.zeros((len(turn), 1))], 1).astype(
+            np.float32).tofile(os.path.join(root, f))
+        car_from_global = np.eye(4)
+        car_from_global[:3, 3] = -origin  # the sweep's frame sits at `origin` in the key frame
+        sweeps.append({"LIDAR_TOP": dict(filename=f, car_from_global=car_from_global,
+                                         timestamp=key_ts - LIDAR_SWEEP_DT * s * 1e6)})
+
+    objects = scene_gt_boxes([boxes], int((boxes[:, 6] > 0).sum()))[0]
+    gt = objects[:, :9].astype(np.float64)
+    names, attrs = zip(*(SCENE_CATEGORY[int(c)] for c in objects[:, 9])) if len(gt) else ((), ())
+
+    cam_infos, rotations, translations = {}, {}, {}
+    for cam, yaw_deg in CAMERA_YAW_DEG.items():
+        a = np.deg2rad(yaw_deg)
+        right, down, fwd = [np.sin(a), -np.cos(a), 0.0], [0.0, 0.0, -1.0], [np.cos(a), np.sin(a), 0.0]
+        rotations[cam] = _rotmat_to_quat(np.stack([right, down, fwd], axis=1)).tolist()
+        translations[cam] = [float(np.cos(a)), float(np.sin(a)), CAMERA_HEIGHT]
+        f = f"samples/{cam}/{token}.jpg"
+        small = rng.randint(0, 256, (9, 16, 3)).astype(np.uint8)
+        Image.fromarray(small).resize((1600, 900), Image.BILINEAR).save(os.path.join(root, f), quality=90)
+        intrinsic = np.array([[1266.0, 0.0, 800.0], [0.0, 1266.0, 450.0], [0.0, 0.0, 1.0]])
+        cam_infos[cam] = dict(filename=f, calibrated_sensor=dict(camera_intrinsic=intrinsic))
+    return dict(
+        sample_token=token, timestamp=key_ts, gt_boxes=gt, gt_names=np.asarray(names),
+        gt_attributes=np.asarray(attrs), num_lidar_pts=_points_in_boxes(turns[0], gt),
+        num_radar_pts=np.zeros(len(gt), np.int64), car_from_global=np.eye(4), ref_from_car=np.eye(4),
+        ego2global_translation=[0.0, 0.0, 0.0], ego2global_rotation=[1.0, 0.0, 0.0, 0.0],
+        lidar_infos={"LIDAR_TOP": dict(filename=lidar_file)}, lidar_sweeps=sweeps,
+        cam_infos=cam_infos, sensor2ego_rotations=rotations, sensor2ego_translations=translations)
+
+
+def write_nuscenes(root: str, n_train: int, n_val: int, seed: int) -> str:
+    """A synthetic nuScenes on disk under `root`, at full width, as
+    `data.dataset.NuScenesDataset` reads it: `train_info.pkl` and
+    `val_info.pkl` (n_train and n_val key frames, frame i drawn from
+    RandomState(seed + i)) and their files. A frame is one `_lidar_scene`:
+    the key LiDAR turn and 10 sweeps, ray-cast as `lidar_batch` casts them
+    (32 beams × 1080 azimuth steps each, stored in each turn's own LiDAR
+    frame with its pose), the scene's cars and pedestrians as GT boxes
+    (`vehicle.car` / `human.pedestrian.adult`, with the key turn's points
+    inside each), and six 900×1600 JPEGs of smooth random colour under
+    nuScenes-like cameras (1266 px focal length, 55° / 110° apart). The
+    LiDAR frame is the ego frame, the ego frame the global one. Frames are
+    cast in `WRITE_THREADS` threads. Returns `root`."""
+    for sub in ["samples/LIDAR_TOP", "sweeps/LIDAR_TOP", *(f"samples/{c}" for c in CAMERA_YAW_DEG)]:
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    tokens = [f"train{i:04d}" for i in range(n_train)] + [f"val{i:04d}" for i in range(n_val)]
+    with ThreadPoolExecutor(WRITE_THREADS) as ex:
+        infos = list(ex.map(lambda i: _write_frame(root, tokens[i], seed + i), range(len(tokens))))
+    for split, part in (("train", infos[:n_train]), ("val", infos[n_train:])):
+        with open(os.path.join(root, f"{split}_info.pkl"), "wb") as f:
+            pickle.dump(part, f)
+    return root

@@ -18,7 +18,8 @@ A parameter without a gradient gets a zero one, as in optax, where every
 leaf has one.
 
 `TrainState` holds the step count; the parameters and BatchNorm statistics
-live in the model, Adam's moments in the optimizer.
+live in the model, Adam's moments in the optimizer (`state_dict` /
+`load_state_dict` for checkpoints).
 """
 from __future__ import annotations
 
@@ -87,6 +88,13 @@ class Optimizer:
 
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
+
+    def state_dict(self) -> Dict:
+        """Adam's moments and step counts, and the parameter groups."""
+        return self.adamw.state_dict()
+
+    def load_state_dict(self, state_dict: Dict) -> None:
+        self.adamw.load_state_dict(state_dict)
 
 
 def make_optimizer(model: nn.Module, train_cfg, steps_per_epoch: int = 1) -> Optimizer:
