@@ -145,6 +145,31 @@ Phases, each printed on its own line:
            five TP errors finite; no loader worker left; no file written
            under the repository. Prints s/step and the loader wait a step
            from metrics.jsonl, and the phase's wall seconds
+  ddp distill lidar->camera   two ranks on the one card in a gloo world
+           (`parallel.launch.run_ranks`; NCCL takes one rank a card), each
+           with its 2 rows of the distill train batch (global 4), through
+           the `Trainer`'s data-parallel step: the camera student
+           (`distill_exp` seeded weights) from distill train's calibrated
+           teacher; one warm-up step, then TIMED_STEPS timed steps with every
+           launch count set to 0 just before and read just after, on each
+           rank. Checks: after every step both ranks hold the same parameters
+           bit for bit; rank 0's loss is the mean of the ranks' totals
+           (DDP_LOSS_RTOL); each rank launched K1 and K5 once and K4 21 times
+           a step; finite metrics; the teacher untrained. Prints s/step
+           (rank 0's clock), global frames/s, each rank's peak memory and
+           launches, the five loss terms, each rank's totals and the wall
+           seconds
+  ddp tiny a small float32 camera<-LiDAR distill step over the same two
+           ranks (BatchNorms tamed), on the card (TF32 off) against the same
+           two-rank step on the CPU: metrics rtol 1e-3, the averaged
+           gradients within 5e-3 of their scale, the parameters' change
+           within 1e-2 lr (2 lr where |g| is below 1e-3 of its scale)
+  ddp nccl two tiny distill steps through a `Trainer` that makes an NCCL
+           group of one rank from `torchrun`'s environment
+           (`parallel.mesh.init_from_env`), against the same steps with no
+           group: bit for bit where two runs with no group are, else within
+           DDP_NCCL_SPREAD times their difference; the trainer destroys its
+           group at `close`
 
 Any failed phase raises, so the script exits non-zero. The last three lines
 are the kernel table (JSON, K1-K11, K7's row at s2; K4's ms, plain_ms,
@@ -239,6 +264,21 @@ TRAIN_TINY_GRAD_TOL = 5e-3
 CLI_TRAIN_FRAMES = 12
 CLI_VAL_FRAMES = 4
 CLI_WORKERS = 4
+# the data-parallel phases: two ranks on the one card in a gloo world (NCCL
+# takes one rank a card; gloo all-reduces and broadcasts CUDA tensors
+# through the host), BATCH // DDP_RANKS frames a rank of each global batch
+DDP_RANKS = 2
+DDP_RANK_BATCH = BATCH // DDP_RANKS
+# seconds the spawned world may take, joining included, before its ranks are
+# killed and the run fails
+DDP_TIMEOUT_S = 420
+# rank 0's loss against the mean of the ranks' totals: the step sums the
+# terms in float32, the check again in float64 on the host
+DDP_LOSS_RTOL = 1e-6
+# [ddp nccl] against the steps with no group: bit for bit where two runs
+# with no group are; else within this multiple of their difference (the
+# backward of grid_sample and of the losses' gathers adds with atomics)
+DDP_NCCL_SPREAD = 4.0
 
 
 def log(phase, **kv):
@@ -812,9 +852,10 @@ def train_run(phase, step_fn, student, want, recorders=(), n_steps=TIMED_STEPS):
     return launches
 
 
-def train_phases(dev, table) -> None:
+def train_phases(dev, table):
     """The training paths: distill train (main path), camera train, K5,
-    train tiny."""
+    train tiny. Returns the distill step's batch (numpy) and its calibrated
+    teacher's state dict (on the CPU), for the data-parallel phases."""
     from unidistill_torch.configs.nuscenes import (
         DISTILL_VARIANTS, DataConfig, camera_exp, distill_exp, lidar_exp, tiny_model)
     from unidistill_torch.models.bevfusion import BEVFusionCenterHead
@@ -828,12 +869,14 @@ def train_phases(dev, table) -> None:
     s_cfg, t_cfg = camera_exp().model, lidar_exp().model
     exp = distill_exp("lidar", "camera")
     t0 = time.time()
-    batch = to_device(train_batch(s_cfg, t_cfg, BATCH, seed=21), dev)
+    batch_np = train_batch(s_cfg, t_cfg, BATCH, seed=21)
+    batch = to_device(batch_np, dev)
     data_s = time.time() - t0
     teacher = BEVFusionCenterHead(t_cfg)
     teacher.load_state_dict(random_state_dict(t_cfg, seed=10))
     teacher.to(dev).requires_grad_(False)
     calibrate_batchnorm(teacher, steps.model_inputs(batch, t_cfg, dev, training=False))
+    teacher_sd = {k: v.detach().cpu().clone() for k, v in teacher.state_dict().items()}
     student = BEVFusionCenterHead(s_cfg)
     student.load_state_dict(random_state_dict(s_cfg, seed=0))
     student.to(dev)
@@ -926,6 +969,7 @@ def train_phases(dev, table) -> None:
     boxes = train_batch(tcfg, tiny_model(with_camera=False), 2, seed=23)["gt_boxes"]
     tbatch = dict(small_batch(tcfg, 2, seed=3), gt_boxes=boxes)
     train_card_vs_cpu("train tiny", dev, tcfg, tbatch, random_state_dict(tcfg, seed=2), camera_exp().train)
+    return batch_np, teacher_sd
 
 
 def train_card_vs_cpu(phase, dev, tcfg, tbatch, sd, train_cfg) -> None:
@@ -1390,6 +1434,291 @@ def cli_phases(dev) -> None:
     log(phase, wall_seconds=f"{time.time() - t_phase:.2f}", smi=repr(nvidia_smi_line()))
 
 
+# ---- data parallelism -------------------------------------------------------
+
+
+def rank_rows(batch, rank, b):
+    """Rows [rank·b, (rank+1)·b) of a numpy batch: what the loader hands
+    rank `rank` of each global batch."""
+    return {k: rank_rows(v, rank, b) if isinstance(v, dict) else v[rank * b:(rank + 1) * b]
+            for k, v in batch.items()}
+
+
+def numpy_sd(sd):
+    """A state dict as numpy arrays: what goes to a spawned rank (a tensor
+    would go through a shared-memory file descriptor each)."""
+    return {k: v.detach().cpu().numpy() for k, v in sd.items()}
+
+
+def tensor_sd(sd):
+    return {k: torch.from_numpy(v) for k, v in sd.items()}
+
+
+def ranks_hold_equal(model, group) -> bool:
+    """Whether every rank of `group` holds rank 0's parameters, bit for bit
+    (rank 0's broadcast and compared as int32 words)."""
+    import torch.distributed as dist
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    ref = flat.clone()
+    dist.broadcast(ref, src=0, group=group)
+    same = torch.tensor([int(torch.equal(flat.view(torch.int32), ref.view(torch.int32)))])
+    dist.all_reduce(same, op=dist.ReduceOp.MIN, group=group)
+    return bool(same.item())
+
+
+def tiny_distill(dev, tiny, group, n_steps=1):
+    """`n_steps` tiny float32 camera<-LiDAR distill steps (student tamed)
+    on `dev` over `group` (None: one process) on `tiny`'s batch (this
+    rank's rows where `group` has two ranks). Returns the host metrics of
+    each step, the last step's averaged gradients before the clip, and the
+    parameters' change, on the CPU."""
+    from unidistill_torch.configs.nuscenes import DISTILL_VARIANTS
+    from unidistill_torch.models.bevfusion import BEVFusionCenterHead
+    from unidistill_torch.training import steps
+    from unidistill_torch.training.train_state import TrainState, make_optimizer
+    s_cfg, t_cfg, s_sd, t_sd, batch, train_cfg = tiny
+    student = BEVFusionCenterHead(s_cfg)
+    student.load_state_dict(tensor_sd(s_sd))
+    tame(student)
+    start = {k: p.detach().clone() for k, p in student.named_parameters()}
+    student.to(dev)
+    teacher = BEVFusionCenterHead(t_cfg)
+    teacher.load_state_dict(tensor_sd(t_sd))
+    teacher.to(dev).requires_grad_(False)
+    opt = make_optimizer(student, train_cfg)
+    state = TrainState()
+    batch = to_device(batch, dev)
+    host = [steps.metrics_to_host(steps.distill_train_step(state, batch, student, teacher, opt, s_cfg, t_cfg,
+                                                           DISTILL_VARIANTS[("lidar", "camera")], group))
+            for _ in range(n_steps)]
+    unclip = max(1.0, host[-1]["grad_norm"] / opt.grad_clip)  # .grad holds the clipped average
+    grads = {k: (p.grad * unclip).cpu() for k, p in student.named_parameters()}
+    change = {k: p.detach().cpu() - start[k] for k, p in student.named_parameters()}
+    return host, grads, change
+
+
+def card_vs_cpu_step(cpu, card, lr):
+    """The worst disagreements of two tiny steps' (metrics, gradients,
+    change): metrics relative; each gradient over its scale (max |g| of the
+    tensor, at least 1e-3 of the largest |g|); the parameter change, over lr,
+    where |g| exceeds 1e-3 of its scale (elsewhere the sign of Adam's first
+    update may flip: that change is held to 2 lr)."""
+    (m_c, g_c, d_c), (m_g, g_g, d_g) = cpu, card
+    metric = max(abs(m_g[-1][k] - v) / max(abs(v), 1e-6) for k, v in m_c[-1].items())
+    top = max(t.abs().max().item() for t in g_c.values())
+    grad = change = flip = 0.0
+    for k, ref in g_c.items():
+        scale = max(ref.abs().max().item(), 1e-3 * top)
+        grad = max(grad, (g_g[k] - ref).abs().max().item() / scale)
+        sure = ref.abs() > 1e-3 * scale
+        diff = (d_g[k] - d_c[k]).abs() / lr
+        change = max(change, diff[sure].max().item() if sure.any() else 0.0)
+        flip = max(flip, diff[~sure].max().item() if (~sure).any() else 0.0)
+    return metric, grad, change, flip
+
+
+def ddp_rank(rank, batch_np, teacher_sd, out_dir, tiny):
+    """One rank of [ddp distill lidar->camera] and [ddp tiny], in a process
+    of a gloo world on the one card (`parallel.launch.run_ranks`)."""
+    import torch.distributed as dist
+    from unidistill_torch.configs.nuscenes import DISTILL_VARIANTS, distill_exp, lidar_exp
+    from unidistill_torch.kernels import build
+    from unidistill_torch.models.bevfusion import BEVFusionCenterHead
+    from unidistill_torch.training.loop import Trainer
+    from unidistill_torch.training.steps import metrics_to_host
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.time()
+
+    # ---- the camera student at full width, through the Trainer's DP step ----
+    pair = ("lidar", "camera")
+    trainer = Trainer(distill_exp(*pair), output_dir=out_dir, device="cuda")  # joins the gloo world
+    dev, group = trainer.device, trainer.group
+    t_cfg = lidar_exp().model
+    teacher = BEVFusionCenterHead(t_cfg)
+    teacher.load_state_dict(tensor_sd(teacher_sd))
+    teacher.to(dev).requires_grad_(False).eval()
+    rows = to_device(rank_rows(batch_np, rank, DDP_RANK_BATCH), dev)
+    state = trainer.init_state(steps_per_epoch=1)
+    step = lambda: trainer.train_step(state, rows, (teacher, t_cfg, DISTILL_VARIANTS[pair]))  # noqa: E731
+    metrics_to_host(step())  # warm-up
+    equal = [ranks_hold_equal(trainer.model, group)]
+    torch.cuda.synchronize()
+    build.reset_launches()
+    times, host, peaks = [], [], []
+    for _ in range(TIMED_STEPS):
+        dist.barrier(group=group)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        host.append(metrics_to_host(step()))  # the one read-back of a step
+        times.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        equal.append(ranks_hold_equal(trainer.model, group))
+    launches = dict(build.LAUNCHES)
+    dcfg = DISTILL_VARIANTS[pair]
+    totals = [h["loss_det"] + dcfg.w_feature * h["loss_feature"] + dcfg.w_rel * h["loss_bev_rel"]
+              + dcfg.w_resp * (h["loss_resp_cls"] + h["loss_resp_reg"]) for h in host]
+    all_totals = [None] * trainer.world_size
+    dist.all_gather_object(all_totals, totals, group=group)
+    if teacher.training or any(p.grad is not None for p in teacher.parameters()):
+        raise RuntimeError(f"rank {rank}: the teacher was trained")
+    trainer.close()
+    del trainer, teacher, rows, state, step
+    torch.cuda.empty_cache()
+    full = dict(times=times, peak_gib=max(peaks), launches=launches, equal=equal, host=host,
+                totals=all_totals, seconds=time.time() - t_phase)
+
+    # ---- tiny: the same two-rank step on the card and on the CPU -------------
+    t0 = time.time()
+    tiny = dict(tiny, batch=rank_rows(tiny["batch"], rank, DDP_RANK_BATCH))
+    args = tuple(tiny[k] for k in ("s_cfg", "t_cfg", "s_sd", "t_sd", "batch", "train_cfg"))
+    cpu = tiny_distill(torch.device("cpu"), args, group)
+    card = tiny_distill(dev, args, group)
+    worst = card_vs_cpu_step(cpu, card, tiny["train_cfg"].lr)
+    return dict(full=full, tiny=dict(worst=worst, loss_cpu=cpu[0][-1]["loss"], loss_card=card[0][-1]["loss"],
+                                     seconds=time.time() - t0))
+
+
+def ddp_phases(dev, batch_np, teacher_sd) -> None:
+    """[ddp distill lidar->camera] and [ddp tiny] over two gloo ranks on the
+    one card, then [ddp nccl]: world size 1 through `init_from_env`."""
+    import dataclasses
+    import tempfile
+    from unidistill_torch.configs.nuscenes import camera_exp, distill_exp, tiny_model
+    from unidistill_torch.parallel.launch import run_ranks
+    from unidistill_torch.serving.synthetic import random_state_dict, train_batch
+
+    s_tiny = dataclasses.replace(tiny_model(with_lidar=False), compute_dtype="float32")
+    t_tiny = dataclasses.replace(tiny_model(with_camera=False), compute_dtype="float32")
+    tiny = dict(s_cfg=s_tiny, t_cfg=t_tiny, s_sd=numpy_sd(random_state_dict(s_tiny, seed=2)),
+                t_sd=numpy_sd(random_state_dict(t_tiny, seed=12)), batch=train_batch(s_tiny, t_tiny, BATCH, seed=25),
+                train_cfg=distill_exp("lidar", "camera").train)
+    phase = "ddp distill lidar->camera"
+    t_phase = time.time()
+    before = repo_files()
+    with tempfile.TemporaryDirectory(prefix="unidistill_ddp_") as tmp:
+        got = run_ranks(ddp_rank, DDP_RANKS, (batch_np, numpy_sd(teacher_sd), tmp, tiny),
+                        ranks_per_card=DDP_RANKS, timeout_s=DDP_TIMEOUT_S)
+    wall = time.time() - t_phase
+    want = dict(bev_pool_fwd=1, bev_pool_bwd=1, sparse_conv_fwd=SPARSE_CONVS_PER_REQUEST)
+    full = [g["full"] for g in got]
+    for r, f in enumerate(full):
+        for k, n in want.items():
+            if f["launches"].get(k, 0) != n * TIMED_STEPS:
+                raise RuntimeError(f"{phase}: rank {r} launched {k} {f['launches'].get(k, 0)} times in "
+                                   f"{TIMED_STEPS} steps, expected {n} a step")
+        if not all(f["equal"]):
+            raise RuntimeError(f"{phase}: the ranks' parameters differ after steps {f['equal']}")
+        for h in f["host"]:
+            bad = [k for k, v in h.items() if not math.isfinite(v)]
+            if bad:
+                raise RuntimeError(f"{phase}: rank {r} non-finite metrics {bad}")
+    loss_err = 0.0
+    for i, h in enumerate(full[0]["host"]):
+        mean = sum(t[i] for t in full[0]["totals"]) / DDP_RANKS
+        loss_err = max(loss_err, abs(h["loss"] - mean) / abs(mean))
+    if loss_err > DDP_LOSS_RTOL:
+        raise RuntimeError(f"{phase}: rank 0's loss is {loss_err:.3e} from the mean of the ranks' totals")
+    times = full[0]["times"]
+    terms = {k: v for k, v in full[0]["host"][-1].items() if not k.startswith("task_")}
+    log(phase, ranks=DDP_RANKS, backend="gloo", rank_batch=DDP_RANK_BATCH, global_batch=BATCH,
+        steps=TIMED_STEPS, s_per_step=[round(t, 4) for t in times],
+        global_frames_per_s=f"{BATCH * len(times) / sum(times):.3f}",
+        peak_mem_gib_per_rank=[round(f["peak_gib"], 3) for f in full],
+        launches_per_rank=json.dumps([f["launches"] for f in full], sort_keys=True),
+        params_bit_equal_after_each_step="true", loss_vs_mean_of_rank_totals=f"{loss_err:.2e}",
+        **{k: f"{v:.6g}" for k, v in sorted(terms.items())})
+    log(phase, rank_totals=[[round(t, 4) for t in tt] for tt in full[0]["totals"]],
+        rank_seconds=[round(f["seconds"], 2) for f in full], wall_seconds=f"{wall:.2f}",
+        smi=repr(nvidia_smi_line()))
+
+    # ---- [ddp tiny]: the two-rank step on the card against the CPU ------------
+    worst = [max(w) for w in zip(*(g["tiny"]["worst"] for g in got))]
+    log("ddp tiny", ranks=DDP_RANKS, loss_cpu=f"{got[0]['tiny']['loss_cpu']:.6g}",
+        loss_card=f"{got[0]['tiny']['loss_card']:.6g}", metrics_rel_err=f"{worst[0]:.3e}",
+        worst_grad_err_over_scale=f"{worst[1]:.3e}", change_err_over_lr=f"{worst[2]:.3e}",
+        flip_change_over_lr=f"{worst[3]:.3e}", tol=(TRAIN_TINY_LOSS_RTOL, TRAIN_TINY_GRAD_TOL, 1e-2, 2.0),
+        seconds=[round(g["tiny"]["seconds"], 2) for g in got])
+    if (worst[0] > TRAIN_TINY_LOSS_RTOL or worst[1] > TRAIN_TINY_GRAD_TOL or worst[2] > 1e-2
+            or worst[3] > 2.0):
+        raise RuntimeError(f"ddp tiny: card vs CPU {worst} beyond the tolerances")
+
+    # ---- [ddp nccl]: world size 1 through init_from_env -------------------------
+    ddp_nccl_phase(dev, tiny)
+    written = sorted(set(repo_files().items()) - set(before.items()))
+    if written:
+        raise RuntimeError(f"{phase}: files written under the repository: {written[:10]}")
+    log("ddp", wall_seconds=f"{time.time() - t_phase:.2f}")
+
+
+def ddp_nccl_phase(dev, tiny) -> None:
+    """[ddp nccl]: two tiny distill steps through a `Trainer` that makes an
+    NCCL group of one rank from `torchrun`'s environment, against the same
+    steps with no group (twice: the card's own rerun spread)."""
+    import os
+    import tempfile
+    from unidistill_torch.configs.nuscenes import DISTILL_VARIANTS, ExpConfig
+    from unidistill_torch.models.bevfusion import BEVFusionCenterHead
+    from unidistill_torch.parallel import mesh as parallel
+    from unidistill_torch.parallel.launch import free_port
+    from unidistill_torch.training.loop import Trainer
+    from unidistill_torch.training.steps import metrics_to_host
+    phase = "ddp nccl"
+    t0 = time.time()
+    args = tuple(tiny[k] for k in ("s_cfg", "t_cfg", "s_sd", "t_sd", "batch", "train_cfg"))
+    plain = [tiny_distill(dev, args, None, n_steps=2) for _ in range(2)]
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost", MASTER_PORT=str(free_port()),
+               NCCL_SOCKET_IFNAME=os.environ.get("NCCL_SOCKET_IFNAME", "lo"))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        with tempfile.TemporaryDirectory(prefix="unidistill_nccl_") as tmp:
+            s_cfg, t_cfg, s_sd, t_sd, batch, train_cfg = args
+            trainer = Trainer(ExpConfig(exp_name="ddp_nccl", model=s_cfg, train=train_cfg), output_dir=tmp,
+                              device="cuda")
+            try:
+                if (trainer.group is None or torch.distributed.get_backend(trainer.group) != "nccl"
+                        or trainer.world_size != 1):
+                    raise RuntimeError(f"{phase}: the trainer made no NCCL group of one rank")
+                state = trainer.init_state(steps_per_epoch=1)
+                trainer.model.load_state_dict(tensor_sd(s_sd))
+                tame(trainer.model)
+                start = {k: p.detach().cpu().clone() for k, p in trainer.model.named_parameters()}
+                teacher = BEVFusionCenterHead(t_cfg)
+                teacher.load_state_dict(tensor_sd(t_sd))
+                teacher.to(trainer.device).requires_grad_(False)
+                tb = to_device(batch, trainer.device)
+                host = [metrics_to_host(trainer.train_step(state, tb, (teacher, t_cfg, DISTILL_VARIANTS[
+                    ("lidar", "camera")]))) for _ in range(2)]
+                unclip = max(1.0, host[-1]["grad_norm"] / trainer.optimizer.grad_clip)
+                nccl = (host, {k: (p.grad * unclip).cpu() for k, p in trainer.model.named_parameters()},
+                        {k: p.detach().cpu() - start[k] for k, p in trainer.model.named_parameters()})
+            finally:
+                trainer.close()
+        if parallel.is_initialized():
+            raise RuntimeError(f"{phase}: the trainer left its group behind")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    def diff(a, b):
+        (ma, ga, da), (mb, gb, db) = a, b
+        metric = max(abs(x[k] - y[k]) for x, y in zip(ma, mb) for k in x)
+        tensors = max(max((ga[k] - gb[k]).abs().max().item(), (da[k] - db[k]).abs().max().item()) for k in ga)
+        return max(metric, tensors)
+
+    rerun, got = diff(plain[0], plain[1]), diff(nccl, plain[0])
+    log(phase, backend="nccl", world_size=1, steps=2, max_abs_diff_vs_no_group=f"{got:.3e}",
+        rerun_max_abs_diff=f"{rerun:.3e}", loss=f"{nccl[0][-1]['loss']:.6g}",
+        bit_equal=str(got == 0.0).lower(), seconds=f"{time.time() - t0:.2f}")
+    if got > DDP_NCCL_SPREAD * rerun:
+        raise RuntimeError(f"{phase}: the NCCL steps differ from the steps with no group by {got:.3e}, "
+                           f"beyond {DDP_NCCL_SPREAD} x the rerun spread {rerun:.3e}")
+
+
 def microbench_phases(dev, table) -> None:
     """This slice's path: the sparse-conv microbenchmarks' entry points
     (smoke, the band gathers, the subm conv's prod and fused paths at the
@@ -1638,13 +1967,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     lidar_phases(dev, table)
     torch.cuda.empty_cache()
-    train_phases(dev, table)
+    distill_inputs = train_phases(dev, table)
     torch.cuda.empty_cache()
     lidar_train_phases(dev, table)
     torch.cuda.empty_cache()
     fusion_phases(dev)
     torch.cuda.empty_cache()
     cli_phases(dev)
+    torch.cuda.empty_cache()
+    ddp_phases(dev, *distill_inputs)
     torch.cuda.empty_cache()
     microbench_phases(dev, table)
 

@@ -12,6 +12,11 @@
 Outputs go under ./outputs/<exp_name>/<timestamp>/ (a `latest` symlink
 beside): metrics.jsonl, ckpt/step_N/, nuscenes/ (the scored submission),
 nuscenes_submission/ (-p: the submission and boxes.pkl).
+
+Over N ranks: `torchrun --nproc_per_node N …_exp.py` (NCCL, a card a rank;
+gloo with --device cpu). Each rank loads `-b` frames of every global batch
+of `-b` × N (the JAX CLI's global batch over its devices); the ranks share
+one output directory, which rank 0 writes.
 """
 from __future__ import annotations
 
@@ -29,7 +34,6 @@ from unidistill_torch.configs import nuscenes as cfgs
 from unidistill_torch.data.collate import DataLoader
 from unidistill_torch.data.dataset import NuScenesDataset
 from unidistill_torch.data.evaluate import generate_submission
-from unidistill_torch.training import checkpoint as ckpt_lib
 from unidistill_torch.training.loop import Trainer
 
 
@@ -80,42 +84,50 @@ def configure(exp_cfg: cfgs.ExpConfig, args) -> cfgs.ExpConfig:
     return cfgs.apply_overrides(exp_cfg, overrides)
 
 
-def make_loader(exp_cfg: cfgs.ExpConfig, model_cfg: cfgs.ModelConfig, split: str, args):
-    """(dataset, loader) of a split; shuffled with drop_last for training."""
+def make_loader(exp_cfg: cfgs.ExpConfig, model_cfg: cfgs.ModelConfig, split: str, args, trainer: Trainer):
+    """(dataset, loader) of a split, the trainer's rank's rows of each
+    global batch; shuffled with drop_last for training."""
     train = split == "training"
     ds = NuScenesDataset(exp_cfg.data, model_cfg, split, seed=args.seed)
     return ds, DataLoader(ds, exp_cfg.train.batch_size_per_device, shuffle=train, drop_last=train,
-                          num_workers=args.num_workers, seed=args.seed)
+                          num_workers=args.num_workers, seed=args.seed, rank=trainer.rank,
+                          world_size=trainer.world_size)
 
 
-def val_loader(exp_cfg: cfgs.ExpConfig, model_cfg: cfgs.ModelConfig, args):
+def val_loader(exp_cfg: cfgs.ExpConfig, model_cfg: cfgs.ModelConfig, args, trainer: Trainer):
     """The validation split, or (None, None) where the data root has none
     (per-epoch validation is then skipped)."""
     try:
-        return make_loader(exp_cfg, model_cfg, "validation", args)
+        return make_loader(exp_cfg, model_cfg, "validation", args, trainer)
     except FileNotFoundError as e:
-        print(f"[base_cli] no validation split ({e}); per-epoch eval disabled")
+        if trainer.rank == 0:
+            print(f"[base_cli] no validation split ({e}); per-epoch eval disabled")
         return None, None
 
 
 def evaluate_or_predict(trainer: Trainer, exp_cfg: cfgs.ExpConfig, model_cfg: cfgs.ModelConfig, args):
     """-e: score the validation split; -p: write the test split's
     submission and the raw predictions (boxes.pkl)."""
-    ds, dl = make_loader(exp_cfg, model_cfg, "validation" if args.evaluate else "testing", args)
+    ds, dl = make_loader(exp_cfg, model_cfg, "validation" if args.evaluate else "testing", args, trainer)
     state = trainer.init_state(steps_per_epoch=1)
     if args.ckpt_path:
         trainer.restore(state, args.ckpt_path, with_optimizer=False)
     if args.evaluate:
         res = trainer.evaluate(dl, ds)
-        print(res)
+        if trainer.rank == 0:
+            print(res)
         return
     preds = trainer.predict(dl)
-    sub_dir = os.path.join(trainer.output_dir, "nuscenes_submission")
-    generate_submission(preds, ds.infos[: len(preds)], sub_dir)
-    # raw prediction dump beside the json (ref nuscenes_multimodal.py:395-415
-    # dump_inference_results)
-    with open(os.path.join(sub_dir, "boxes.pkl"), "wb") as f:
-        pickle.dump(preds, f)
+
+    def write():
+        sub_dir = os.path.join(trainer.output_dir, "nuscenes_submission")
+        generate_submission(preds, ds.infos[: len(preds)], sub_dir)
+        # raw prediction dump beside the json (ref
+        # nuscenes_multimodal.py:395-415 dump_inference_results)
+        with open(os.path.join(sub_dir, "boxes.pkl"), "wb") as f:
+            pickle.dump(preds, f)
+
+    trainer.on_rank0(write)
 
 
 def run_cli(exp_cfg: cfgs.ExpConfig, exp_name: Optional[str] = None,
@@ -131,13 +143,12 @@ def run_cli(exp_cfg: cfgs.ExpConfig, exp_name: Optional[str] = None,
         if args.evaluate or args.predict:
             evaluate_or_predict(trainer, exp_cfg, exp_cfg.model, args)
             return trainer
-        _, dl = make_loader(exp_cfg, exp_cfg.model, "training", args)
-        val_ds, val_dl = val_loader(exp_cfg, exp_cfg.model, args)
+        _, dl = make_loader(exp_cfg, exp_cfg.model, "training", args, trainer)
+        val_ds, val_dl = val_loader(exp_cfg, exp_cfg.model, args, trainer)
         state = trainer.fit(dl, exp_cfg.train.max_epochs, resume_from=args.ckpt_path,
                             val_loader=val_dl, val_dataset=val_ds,
                             eval_interval=exp_cfg.train.eval_interval)
-        ckpt_lib.save_checkpoint(os.path.join(trainer.output_dir, "ckpt"), state.step, trainer.model,
-                                 trainer.optimizer)
+        trainer.save_checkpoint(state.step)
         return trainer
     finally:
         trainer.close()

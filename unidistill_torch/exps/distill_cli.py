@@ -14,9 +14,7 @@ hard-codes `tmp/{lidar,camera,fusion}_model.pth`): a port checkpoint (a
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Optional, Sequence
-
 
 from unidistill_torch.configs import nuscenes as cfgs
 from unidistill_torch.exps.base_cli import build_parser, configure, evaluate_or_predict, make_loader, val_loader
@@ -37,7 +35,8 @@ def load_teacher(teacher_cfg: cfgs.ModelConfig, ckpt_path: Optional[str], device
                  ) -> BEVFusionCenterHead:
     """The teacher: seeded initial weights (`init_params`) overlaid with the
     checkpoint's by name, skipping shape mismatches (ref …distill_lidar.py:
-    403-416), on `device`, frozen (no gradients) and in eval mode."""
+    403-416), on `device`, frozen (no gradients) and in eval mode. Every
+    rank loads its own."""
     model = init_params(BEVFusionCenterHead(teacher_cfg), seed)
     if ckpt_path:
         if ckpt_path.endswith((".pth", ".pt")):
@@ -67,16 +66,15 @@ def run_distill_cli(teacher: str, student: str, argv: Optional[Sequence[str]] = 
         if args.evaluate or args.predict:
             evaluate_or_predict(trainer, exp_cfg, exp_cfg.model, args)
             return trainer
-        _, dl = make_loader(exp_cfg, both_cfg, "training", args)
+        _, dl = make_loader(exp_cfg, both_cfg, "training", args, trainer)
         t_cfg = _teacher_cfg(teacher)
         t_model = load_teacher(t_cfg, args.teacher_ckpt, trainer.device, args.seed)
-        val_ds, val_dl = val_loader(exp_cfg, both_cfg, args)
+        val_ds, val_dl = val_loader(exp_cfg, both_cfg, args, trainer)
         state = trainer.fit(dl, exp_cfg.train.max_epochs, resume_from=args.ckpt_path,
                             teacher=(t_model, t_cfg, exp_cfg.distill),
                             val_loader=val_dl, val_dataset=val_ds,
                             eval_interval=exp_cfg.train.eval_interval)
-        ckpt_lib.save_checkpoint(os.path.join(trainer.output_dir, "ckpt"), state.step, trainer.model,
-                                 trainer.optimizer)
+        trainer.save_checkpoint(state.step)
         return trainer
     finally:
         trainer.close()

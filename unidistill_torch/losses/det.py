@@ -10,8 +10,10 @@ Kept from the JAX functions (and the reference they mirror):
     gradient;
   * value-dependent branches (`num_pos == 0`, `loc_loss < 1`) are
     `torch.where` on device tensors: nothing is read back to the host.
-The JAX functions normalise by a `pmean` of the positive counts over the
-data-parallel axis; the port has one replica, so the local count is used.
+The positive counts that normalise the focal, box and IoU terms are
+`pmean`'d over the ranks of `group` (the JAX functions' `axis_name`): a
+rank's loss from its rows is then normalised by the mean count over the
+global batch, as in JAX; with no group, by its own count.
 `center_head_loss` returns the sigmoided heads as a new list and leaves the
 model's outputs as they are.
 """
@@ -21,18 +23,21 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from unidistill_torch.parallel.mesh import pmean
+
 
 def clamped_sigmoid(x: torch.Tensor, lo: float = 1e-4) -> torch.Tensor:
     return torch.clamp(torch.sigmoid(x), lo, 1.0 - lo)
 
 
-def focal_loss(pred: torch.Tensor, gt: torch.Tensor, alpha: float, gamma: float) -> torch.Tensor:
+def focal_loss(pred: torch.Tensor, gt: torch.Tensor, alpha: float, gamma: float,
+               group=None) -> torch.Tensor:
     """CornerNet-style focal loss; pred: probabilities, gt: one-hot heatmap."""
     pos = (gt == 1.0).float()
     neg = (gt == 0.0).float()
     pos_loss = torch.log(pred) * torch.pow(1 - pred, gamma) * pos * alpha
     neg_loss = torch.log(1 - pred + 1e-4) * torch.pow(pred, gamma) * neg * (1 - alpha)
-    num_pos = pos.sum()
+    num_pos = pmean(pos.sum(), group)
     total = pos_loss.sum() + neg_loss.sum()
     return torch.where(num_pos == 0, -neg_loss.sum(), -total / num_pos.clamp_min(1e-12))
 
@@ -44,11 +49,12 @@ def gather_feat(feat: torch.Tensor, ind: torch.Tensor) -> torch.Tensor:
     return torch.gather(flat, 2, ind.long()[:, None, :].expand(B, C, ind.shape[1])).permute(0, 2, 1)
 
 
-def reg_loss(pred: torch.Tensor, mask: torch.Tensor, ind: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def reg_loss(pred: torch.Tensor, mask: torch.Tensor, ind: torch.Tensor, target: torch.Tensor,
+             group=None) -> torch.Tensor:
     """Masked L1 per code dim, summed over batch and objects, over the
     positive count. pred [B, D, H, W]; target [B, P, D]. Returns [D]."""
     p = gather_feat(pred, ind)
-    num = mask.float().sum()
+    num = pmean(mask.float().sum(), group)
     finite = torch.isfinite(target)
     m = mask.float()[..., None] * finite.float()
     t = torch.where(finite, target, torch.zeros_like(target))
@@ -98,7 +104,7 @@ def _nearest_bev_iou_elementwise(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -
 
 
 def iou_losses(pred_cat: torch.Tensor, target_encoding: torch.Tensor, ind: torch.Tensor,
-               mask: torch.Tensor, stride: int, voxel_size: Tuple[float, float]):
+               mask: torch.Tensor, stride: int, voxel_size: Tuple[float, float], group=None):
     """IoU regression and IoU-aware prediction losses. pred_cat [B, 11, H, W]
     = (reg 2, height 1, dim 3, rot 2, vel 2, iou 1); target_encoding
     [B, P, 10]. Returns (iou_loss, iou_aware_loss)."""
@@ -115,12 +121,12 @@ def iou_losses(pred_cat: torch.Tensor, target_encoding: torch.Tensor, ind: torch
     p_ox, p_oy, p_whl, p_rot, p_z = decode(pred)
     iou = _axis_aligned_3d_iou(t_ox, t_oy, t_whl, t_z, p_ox, p_oy, p_whl, p_z)
     m = mask.float()
-    iou_loss = ((1.0 - torch.clamp(iou, 0.0, 1.0)) * m).sum() / m.sum().clamp_min(1.0)
+    iou_loss = ((1.0 - torch.clamp(iou, 0.0, 1.0)) * m).sum() / pmean(m.sum(), group).clamp_min(1.0)
 
     t_box = torch.stack([t_ox, t_oy, t_z, t_whl[..., 0], t_whl[..., 1], t_whl[..., 2], t_rot], -1)
     p_box = torch.stack([p_ox, p_oy, p_z, p_whl[..., 0], p_whl[..., 1], p_whl[..., 2], p_rot], -1).detach()
     tar = 2.0 * (_nearest_bev_iou_elementwise(t_box, p_box) - 0.5)
-    iou_aware = reg_loss(pred_cat[:, 10:11], mask, ind, tar[..., None]).sum()
+    iou_aware = reg_loss(pred_cat[:, 10:11], mask, ind, tar[..., None], group).sum()
     return iou_loss, iou_aware
 
 
@@ -137,9 +143,11 @@ def center_head_loss(
     voxel_size: Tuple[float, float],
     focal_alpha: float,
     focal_gamma: float,
+    group=None,
 ):
-    """The whole IoU-aware CenterHead loss. Returns (total, metrics, preds
-    with 'hm' replaced by its clamped sigmoid)."""
+    """The whole IoU-aware CenterHead loss, its normalisers `pmean`'d over
+    `group`. Returns (total, metrics, preds with 'hm' replaced by its
+    clamped sigmoid)."""
     cw = torch.tensor(code_weights, dtype=torch.float32, device=awl_params.device)
     total = 0.0
     metrics: Dict[str, torch.Tensor] = {}
@@ -147,12 +155,12 @@ def center_head_loss(
     for tid, (pd, tg) in enumerate(zip(preds, targets)):
         pd = dict(pd, hm=clamped_sigmoid(pd["hm"]))
         new_preds.append(pd)
-        hm_loss = focal_loss(pd["hm"], tg["heatmap"], focal_alpha, focal_gamma)
+        hm_loss = focal_loss(pd["hm"], tg["heatmap"], focal_alpha, focal_gamma, group)
         pred_cat = torch.cat([pd[k] for k in HEAD_CAT], dim=1)  # [B, 11, H, W]
-        box_l = reg_loss(pred_cat[:, :10], tg["mask"], tg["ind"], tg["box_encoding"])
+        box_l = reg_loss(pred_cat[:, :10], tg["mask"], tg["ind"], tg["box_encoding"], group)
         loc_loss = (box_l * cw).sum()
         iou_l, iou_aware_l = iou_losses(pred_cat, tg["box_encoding"], tg["ind"], tg["mask"],
-                                        stride, voxel_size)
+                                        stride, voxel_size, group)
         task_loss = automatic_weighted_loss(awl_params, [hm_loss, loc_loss, iou_aware_l])
         task_loss = task_loss + torch.where(loc_loss < 1.0, iou_l * iou_weight, torch.zeros_like(iou_l))
         total = total + task_loss

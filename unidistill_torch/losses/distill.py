@@ -11,8 +11,9 @@ JAX `losses/distill.py`, on the port's NCHW maps.
 Kept from the JAX functions: the sampling swaps (x, y) before the grid
 sample, as the reference does (both maps are sampled alike); the student
 heatmap arrives already sigmoided and clamped by its head loss, while the
-teacher's is clamp(sigmoid(hm / temp)) here. Normalisers are local counts
-(one replica; the JAX functions `pmean` them over the data-parallel axis).
+teacher's is clamp(sigmoid(hm / temp)) here. Each loss's weight (the GT
+count, or the Gaussian mask's sum) is `pmean`'d over the ranks of `group`,
+as the JAX functions do over their `axis_name`.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch
 
 from unidistill_torch.ops.gaussian import box_mask_gaussian
 from unidistill_torch.ops.grid_sample import grid_sample_2d
+from unidistill_torch.parallel.mesh import pmean
 
 RESP_REG = ("reg", "height", "dim", "rot", "vel", "iou")
 
@@ -53,16 +55,16 @@ def _nine_point_samples(feat: torch.Tensor, corners: torch.Tensor) -> torch.Tens
 
 
 def feature_distill_loss(feat_student: torch.Tensor, feat_teacher: torch.Tensor,
-                         corners: torch.Tensor, gt_mask: torch.Tensor) -> torch.Tensor:
+                         corners: torch.Tensor, gt_mask: torch.Tensor, group=None) -> torch.Tensor:
     s = _nine_point_samples(feat_student, corners)
     t = _nine_point_samples(feat_teacher, corners)
     l1 = (s - t).abs().mean(-1).mean(-1)  # [B, G]
     m = gt_mask.float()
-    return (l1 * m).sum() / (m.sum() + 1e-4)
+    return (l1 * m).sum() / (pmean(m.sum(), group) + 1e-4)
 
 
 def bev_distill_loss(bev_student: torch.Tensor, bev_teacher: torch.Tensor,
-                     corners: torch.Tensor, gt_mask: torch.Tensor) -> torch.Tensor:
+                     corners: torch.Tensor, gt_mask: torch.Tensor, group=None) -> torch.Tensor:
     def gram(feat):
         x = _nine_point_samples(feat, corners)  # [B, G, 9, C]
         x = x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-4)
@@ -70,13 +72,13 @@ def bev_distill_loss(bev_student: torch.Tensor, bev_teacher: torch.Tensor,
 
     l1 = (gram(bev_student) - gram(bev_teacher)).abs().mean(-1).mean(-1)
     m = gt_mask.float()
-    return (l1 * m).sum() / (m.sum() + 1e-4)
+    return (l1 * m).sum() / (pmean(m.sum(), group) + 1e-4)
 
 
 def response_distill_loss(resp_student: List[Dict[str, torch.Tensor]],
                           resp_teacher: List[Dict[str, torch.Tensor]],
                           gt_boxes: torch.Tensor, pc_range, voxel_size, out_size_factor: int,
-                          teacher_hm_temp: float = 2.0, teacher_hm_clamp: float = 1e-4):
+                          teacher_hm_temp: float = 2.0, teacher_hm_clamp: float = 1e-4, group=None):
     """Returns (cls, reg)."""
     def cat_reg(resp):
         return torch.cat([r[k] for r in resp for k in RESP_REG], dim=1)  # [B, 66, H, W]
@@ -89,5 +91,5 @@ def response_distill_loss(resp_student: List[Dict[str, torch.Tensor]],
     mask = box_mask_gaussian(gt_boxes, (H, W), pc_range, voxel_size, out_size_factor)  # [B, H, W]
     diff_reg = (reg_s - reg_t).abs().mean(1) * mask
     diff_cls = (cls_s.amax(1) - cls_t.amax(1)).abs() * mask
-    weight = mask.sum()
+    weight = pmean(mask.sum(), group)
     return diff_cls.sum() / (weight + 1e-4), diff_reg.sum() / (weight + 1e-4)

@@ -8,10 +8,22 @@ installed), checkpoints (`training/checkpoint.py`) under a timestamped
 output directory with a `latest` symlink, validation every `eval_interval`
 epochs, and the eval path that writes `nuscenes_results.json` and scores it.
 
-One process, one card: the JAX package's device mesh, spatial sharding,
-profiler hook and multihost gathers have no counterpart here yet. Neither
-has its s0 slot-drop audit: the port's LiDAR encoder keeps every active
-site, so no frame loses slots to a cap.
+Data parallelism: under `torchrun` (or in a process group its caller has
+made) the `Trainer` runs one rank a process, each on its own device
+(`parallel.mesh.local_device`) with its rows of every global batch (the
+loader's `rank` and `world_size`); its steps are the data-parallel steps of
+`training/steps.py` over the group, the JAX package's `shard_map` over its
+`dp` mesh. Every rank builds the same seeded weights, loads the same
+checkpoint and teacher, and so holds the same parameters. All ranks share
+rank 0's timestamped output directory (`parallel.mesh.broadcast_stamp`);
+rank 0 alone writes `metrics.jsonl`, tensorboard, checkpoints and scores,
+and a barrier follows each checkpoint. `predict` gathers every rank's
+predictions in the global batches' order. Without a group (one process)
+all of this is the identity.
+
+The JAX package's spatial sharding and profiler hook have no counterpart
+here yet. Neither has its s0 slot-drop audit: the port's LiDAR encoder
+keeps every active site, so no frame loses slots to a cap.
 """
 from __future__ import annotations
 
@@ -29,6 +41,7 @@ from torch import nn
 from unidistill_torch.configs.nuscenes import ExpConfig
 from unidistill_torch.layers.lidar_encoder import SubMConv
 from unidistill_torch.models.bevfusion import BEVFusionCenterHead
+from unidistill_torch.parallel import mesh as parallel
 from unidistill_torch.serving.predictor import resolve_device
 from unidistill_torch.training import checkpoint as ckpt_lib
 from unidistill_torch.training.steps import distill_train_step, eval_step, metrics_to_host, train_step
@@ -79,32 +92,47 @@ def init_params(model: nn.Module, seed: int) -> nn.Module:
     return model
 
 
-def exp_output_dir(exp_name: str) -> str:
+def exp_output_dir(exp_name: str, group=None) -> str:
     """Timestamped dir under ./outputs/<exp_name> + `latest` symlink (ref
-    base_exp.py:142-167)."""
-    stamp = datetime.datetime.now().strftime("%Y-%m-%dT%H:%M:%S")
+    base_exp.py:142-167); the ranks of `group` share rank 0's timestamp,
+    and rank 0 makes the directory and the link."""
+    stamp = parallel.broadcast_stamp(datetime.datetime.now().strftime("%Y-%m-%dT%H:%M:%S"), group)
     d = os.path.join("outputs", exp_name, stamp)
-    os.makedirs(d, exist_ok=True)
-    latest = os.path.join("outputs", exp_name, "latest")
-    if os.path.islink(latest):
-        os.unlink(latest)
-    if not os.path.exists(latest):
-        os.symlink(stamp, latest)
+    if parallel.rank(group) == 0:
+        os.makedirs(d, exist_ok=True)
+        latest = os.path.join("outputs", exp_name, "latest")
+        if os.path.islink(latest):
+            os.unlink(latest)
+        if not os.path.exists(latest):
+            os.symlink(stamp, latest)
+    parallel.barrier(group)
     return d
 
 
 class Trainer:
+    """device: "cuda" (each rank on `cuda:LOCAL_RANK` under a process group)
+    or "cpu". Joins the process group already made, or makes one from
+    `torchrun`'s environment (NCCL on the card, gloo on the CPU;
+    `parallel.mesh.init_from_env`), and destroys at `close` one it made."""
+
     def __init__(self, exp_cfg: ExpConfig, output_dir: Optional[str] = None, device="cuda"):
         self.exp_cfg = exp_cfg
         self.cfg = exp_cfg.model
-        self.device = resolve_device(device)
+        made_group = not parallel.is_initialized()
+        self.group = parallel.init_from_env(device)
+        self._owns_group = made_group and self.group is not None
+        self.rank, self.world_size = parallel.rank(self.group), parallel.world_size(self.group)
+        self.device = resolve_device(parallel.local_device(device) if self.group is not None else device)
         self.model = BEVFusionCenterHead(self.cfg)
         self.optimizer = None
         self.teacher = None
-        self.output_dir = output_dir or exp_output_dir(exp_cfg.exp_name)
+        self.output_dir = output_dir or exp_output_dir(exp_cfg.exp_name, self.group)
+        self.metrics_file = None
+        self._tb = None
+        if self.rank != 0:
+            return
         os.makedirs(self.output_dir, exist_ok=True)
         self.metrics_file = open(os.path.join(self.output_dir, "metrics.jsonl"), "a")
-        self._tb = None
         try:
             from tensorboardX import SummaryWriter  # optional
         except ImportError:
@@ -133,14 +161,20 @@ class Trainer:
         state.step = int(payload["step"])
 
     def close(self):
-        """Release the metrics file / tensorboard writer."""
-        if not self.metrics_file.closed:
+        """Release the metrics file / tensorboard writer, and the process
+        group where the trainer made it."""
+        if self.metrics_file is not None and not self.metrics_file.closed:
             self.metrics_file.close()
         if self._tb is not None:
             self._tb.close()
+        if self._owns_group and parallel.is_initialized():
+            torch.distributed.destroy_process_group()
+            self._owns_group = False
 
-    # ---- logging -------------------------------------------------------------
+    # ---- logging (rank 0) -------------------------------------------------------
     def log(self, rec: Dict[str, Any]):
+        if self.metrics_file is None:
+            return
         rec = {k: (float(v) if isinstance(v, (np.floating, torch.Tensor)) else v) for k, v in rec.items()}
         self.metrics_file.write(json.dumps(rec) + "\n")
         self.metrics_file.flush()
@@ -150,6 +184,41 @@ class Trainer:
         if self._tb is not None:
             for k, v in metrics.items():
                 self._tb.add_scalar(k, v, step)
+
+    def save_checkpoint(self, step: int, keep_latest: Optional[int] = None) -> None:
+        """Rank 0 saves the model and optimizer as `ckpt/step_<step>`; every
+        rank waits for it."""
+        if self.rank == 0:
+            ckpt_lib.save_checkpoint(os.path.join(self.output_dir, "ckpt"), step, self.model, self.optimizer,
+                                     keep_latest=keep_latest)
+        parallel.barrier(self.group)
+
+    def on_rank0(self, fn):
+        """`fn()` on rank 0, its result (or the exception it raised) on every
+        rank of the group."""
+        if self.group is None:
+            return fn()
+        ok, out = True, None
+        if self.rank == 0:
+            try:
+                out = fn()
+            except Exception as e:  # re-raised on every rank below
+                ok, out = False, e
+        ok, out = parallel.broadcast_object((ok, out), self.group)
+        if not ok:
+            raise out
+        return out
+
+    # ---- train step ----------------------------------------------------------
+    def train_step(self, state: TrainState, batch, teacher=None) -> Dict[str, torch.Tensor]:
+        """One step of the model on this rank's rows `batch`, data-parallel
+        over the trainer's group; `teacher` (model, cfg, dcfg) for
+        distillation."""
+        if teacher is None:
+            return train_step(state, batch, self.model, self.optimizer, self.cfg, self.group)
+        t_model, t_cfg, dcfg = teacher
+        return distill_train_step(state, batch, self.model, t_model, self.optimizer, self.cfg, t_cfg, dcfg,
+                                  self.group)
 
     # ---- fit ------------------------------------------------------------------
     def fit(self, train_loader, max_epochs: int, resume_from: Optional[str] = None, teacher=None,
@@ -186,14 +255,9 @@ class Trainer:
                 wait += time.perf_counter() - tw
                 if batch is None:
                     break
-                if teacher is None:
-                    metrics = train_step(state, batch, self.model, self.optimizer, self.cfg)
-                else:
-                    t_model, t_cfg, dcfg = teacher
-                    metrics = distill_train_step(state, batch, self.model, t_model, self.optimizer,
-                                                 self.cfg, t_cfg, dcfg)
+                metrics = self.train_step(state, batch, teacher)
                 step = state.step
-                if step % PRINT_INTERVAL == 0 or step == epoch_end:
+                if self.rank == 0 and (step % PRINT_INTERVAL == 0 or step == epoch_end):
                     m = metrics_to_host(metrics)
                     n = max(step - last_logged, 1)
                     m["sec_per_step"] = (time.perf_counter() - t0) / n
@@ -203,8 +267,7 @@ class Trainer:
                     print(f"epoch {epoch} step {step} loss {m['loss']:.4f} "
                           f"({m['sec_per_step']:.3f}s/it, loader wait "
                           f"{m['loader_wait_sec_per_step']:.3f}s/it)", flush=True)
-            ckpt_lib.save_checkpoint(os.path.join(self.output_dir, "ckpt"), step, self.model,
-                                     self.optimizer, keep_latest=self.exp_cfg.train.num_keep_latest_ckpt)
+            self.save_checkpoint(step, keep_latest=self.exp_cfg.train.num_keep_latest_ckpt)
             if val_loader is not None and (epoch + 1) % eval_interval == 0:
                 self.validate(val_loader, val_dataset, epoch=epoch)
         return state
@@ -222,28 +285,36 @@ class Trainer:
             rec = {"event": "val", "epoch": epoch, "eval_error": str(e)}
         rec["val_sec"] = time.time() - t0
         self.log(rec)
-        print(f"val[{epoch}]: " + json.dumps(rec), flush=True)
+        if self.rank == 0:
+            print(f"val[{epoch}]: " + json.dumps(rec), flush=True)
         return rec
 
     # ---- evaluate --------------------------------------------------------------
     def predict(self, loader) -> List[Dict]:
         """Run the eval step over a loader, the model in eval mode; returns
         per-frame prediction dicts (numpy) with the padding stripped, labels
-        0-based and the frame's `meta` (ref …base_exp.py:419-434)."""
+        0-based and the frame's `meta` (ref …base_exp.py:419-434). Under a
+        group every rank returns every rank's frames, gathered and put in
+        the global batches' order (JAX `predict`'s multihost gather): rank
+        r's share of each global batch follows rank r - 1's."""
         self.model.eval()
-        out: List[Dict] = []
+        local: List[List[Dict]] = []
         for batch in loader:
-            rois = {k: v.cpu().numpy() for k, v in eval_step(self.model, batch, self.cfg).items()}
-            for b in range(rois["boxes"].shape[0]):
-                m = rois["mask"][b]
-                out.append(dict(boxes=rois["boxes"][b][m], scores=rois["scores"][b][m],
-                                labels=rois["labels"][b][m] - 1, meta=batch["meta"][b]))
-        return out
+            frames: List[Dict] = []
+            if batch:  # a rank's share of a short last global batch may be empty
+                rois = {k: v.cpu().numpy() for k, v in eval_step(self.model, batch, self.cfg).items()}
+                for b in range(rois["boxes"].shape[0]):
+                    m = rois["mask"][b]
+                    frames.append(dict(boxes=rois["boxes"][b][m], scores=rois["scores"][b][m],
+                                       labels=rois["labels"][b][m] - 1, meta=batch["meta"][b]))
+            local.append(frames)
+        return [f for frames in parallel.all_gather_host_objects(local, group=self.group) for f in frames]
 
     def evaluate(self, loader, dataset) -> Optional[Dict]:
         """Predict the validation split, write its submission and score it
         (the nuScenes devkit where it is installed, else the native
-        scorer)."""
+        scorer); under a group rank 0 writes and scores, and every rank
+        returns its scores."""
         from unidistill_torch.data.evaluate import generate_submission, run_detection_eval
 
         preds = self.predict(loader)
@@ -257,16 +328,19 @@ class Trainer:
             if not (ptok is None or itok is None or ptok == itok):
                 raise ValueError(f"prediction/info token mismatch: {ptok} vs {itok}: "
                                  "the eval loader must be unshuffled")
-        result_dir = os.path.join(self.output_dir, "nuscenes")
-        path = generate_submission(preds, infos, result_dir)
-        dcfg = self.exp_cfg.data
-        metrics = run_detection_eval(path, result_dir, eval_set="val",
-                                     version=dcfg.nusc_version, dataroot=dcfg.root_path)
-        if metrics is None:
-            # devkit absent: the native detection_cvpr_2019 scorer against
-            # the info-pkl GT (data/detection_eval.py)
-            from unidistill_torch.data.detection_eval import evaluate_submission_native
+        def score():
+            result_dir = os.path.join(self.output_dir, "nuscenes")
+            path = generate_submission(preds, infos, result_dir)
+            dcfg = self.exp_cfg.data
+            metrics = run_detection_eval(path, result_dir, eval_set="val",
+                                         version=dcfg.nusc_version, dataroot=dcfg.root_path)
+            if metrics is None:
+                # devkit absent: the native detection_cvpr_2019 scorer
+                # against the info-pkl GT (data/detection_eval.py)
+                from unidistill_torch.data.detection_eval import evaluate_submission_native
 
-            metrics = evaluate_submission_native(
-                path, infos, output_path=os.path.join(result_dir, "metrics_summary.json"))
-        return metrics
+                metrics = evaluate_submission_native(
+                    path, infos, output_path=os.path.join(result_dir, "metrics_summary.json"))
+            return metrics
+
+        return self.on_rank0(score)

@@ -20,6 +20,16 @@ which it moves into its running statistics), the loss, the backward and one
 optimizer update, and returns a dict of 0-d device tensors; `metrics_to_host`
 reads them back in one transfer. Nothing inside a step reads a device value
 on the host (the LiDAR teacher's rulebooks excepted: their sizes are data).
+
+Data parallelism (`group`, a process group from `parallel.mesh`; None for
+one process): each rank steps on its own rows of the global batch, as a
+device of the JAX package's `dp` mesh does under `shard_map`. The loss
+normalisers are `pmean`'d over the ranks, the gradients averaged over them
+(`parallel.mesh.average_gradients`, before the clip and the update) and the
+`loss` metric too; every other metric is the rank's own (JAX returns device
+0's). BatchNorm normalises by the rank's own rows and each rank keeps its
+own running statistics, as each JAX device does; the parameters stay equal
+on every rank. The teacher is neither synchronised nor averaged.
 """
 from __future__ import annotations
 
@@ -38,6 +48,7 @@ from unidistill_torch.losses.distill import (
     response_distill_loss,
 )
 from unidistill_torch.ops.voxelize import voxelize
+from unidistill_torch.parallel.mesh import average_gradients, pmean
 from unidistill_torch.targets.assigner import assign_targets
 from unidistill_torch.training.train_state import Optimizer, TrainState
 
@@ -89,45 +100,49 @@ def eval_step(model, batch: Dict[str, Any], cfg: ModelConfig) -> Dict[str, torch
     )
 
 
-def detector_loss(out: Dict, gt_boxes: torch.Tensor, cfg: ModelConfig):
-    """Targets from the GT boxes, then the CenterHead loss. Returns (loss,
-    metrics, heads with the clamped-sigmoid heatmap)."""
+def detector_loss(out: Dict, gt_boxes: torch.Tensor, cfg: ModelConfig, group=None):
+    """Targets from the GT boxes, then the CenterHead loss (normalisers
+    `pmean`'d over `group`). Returns (loss, metrics, heads with the
+    clamped-sigmoid heatmap)."""
     targets = assign_targets(gt_boxes, cfg.assigner, cfg.tasks, cfg.grid_size,
                              cfg.point_cloud_range, cfg.voxel_size)
     return center_head_loss(
         out["multi_head_features"], targets, out["awl_params"],
         cfg.det_head.code_weights, cfg.det_head.iou_weight, cfg.out_size_factor,
-        cfg.voxel_size[:2], cfg.det_head.focal_alpha, cfg.det_head.focal_gamma,
+        cfg.voxel_size[:2], cfg.det_head.focal_alpha, cfg.det_head.focal_gamma, group,
     )
 
 
-def _update(state: TrainState, loss: torch.Tensor, optimizer: Optimizer, metrics: Dict) -> Dict:
+def _update(state: TrainState, loss: torch.Tensor, optimizer: Optimizer, metrics: Dict, group) -> Dict:
     optimizer.zero_grad()
     loss.backward()
+    average_gradients(optimizer.params, group)
     metrics["grad_norm"] = optimizer.step(state.step)
-    metrics["loss"] = loss.detach()
+    metrics["loss"] = pmean(loss.detach(), group)
     state.step += 1
     return {k: v.detach() for k, v in metrics.items()}
 
 
 def train_step(state: TrainState, batch: Dict[str, Any], model, optimizer: Optimizer,
-               cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+               cfg: ModelConfig, group=None) -> Dict[str, torch.Tensor]:
     """One detector step: forward in train mode, CenterHead loss, backward,
-    optimizer update. Returns the metrics (0-d tensors on the device)."""
+    optimizer update; data-parallel over `group`. Returns the metrics (0-d
+    tensors on the device)."""
     device = next(model.parameters()).device
     model.train()
     out = model(**model_inputs(batch, cfg, device, training=True))
-    loss, metrics, _ = detector_loss(out, _tensor(batch["gt_boxes"], device), cfg)
-    return _update(state, loss, optimizer, metrics)
+    loss, metrics, _ = detector_loss(out, _tensor(batch["gt_boxes"], device), cfg, group)
+    return _update(state, loss, optimizer, metrics, group)
 
 
 def distill_train_step(state: TrainState, batch: Dict[str, Any], student, teacher,
                        optimizer: Optimizer, student_cfg: ModelConfig, teacher_cfg: ModelConfig,
-                       dcfg: DistillConfig) -> Dict[str, torch.Tensor]:
+                       dcfg: DistillConfig, group=None) -> Dict[str, torch.Tensor]:
     """Teacher -> student step: total = det + w_feature·feature + w_rel·bev_rel
     + w_resp·(resp_cls + resp_reg), for any pair of `DISTILL_VARIANTS`. The
     teacher runs frozen, in eval mode under no_grad, on the eval voxel cap;
-    the student trains on the train cap (each voxelises the batch itself)."""
+    the student trains on the train cap (each voxelises the batch itself).
+    Data-parallel over `group`."""
     device = next(student.parameters()).device
     gt = _tensor(batch["gt_boxes"], device)
     gt_mask = gt.abs().sum(-1) > 0
@@ -138,18 +153,18 @@ def distill_train_step(state: TrainState, batch: Dict[str, Any], student, teache
         t_out = teacher(**model_inputs(batch, teacher_cfg, device, training=False))
     student.train()
     out = student(**model_inputs(batch, student_cfg, device, training=True))
-    det_loss, metrics, preds_sig = detector_loss(out, gt, student_cfg)
-    l_feat = feature_distill_loss(out["model_output"], t_out["model_output"], corners, gt_mask)
-    l_rel = bev_distill_loss(out["bev_feature"], t_out["bev_feature"], corners, gt_mask)
+    det_loss, metrics, preds_sig = detector_loss(out, gt, student_cfg, group)
+    l_feat = feature_distill_loss(out["model_output"], t_out["model_output"], corners, gt_mask, group)
+    l_rel = bev_distill_loss(out["bev_feature"], t_out["bev_feature"], corners, gt_mask, group)
     l_cls, l_reg = response_distill_loss(
         preds_sig, t_out["multi_head_features"], gt, student_cfg.point_cloud_range,
         student_cfg.voxel_size, student_cfg.out_size_factor, dcfg.teacher_hm_temp,
-        dcfg.teacher_hm_clamp,
+        dcfg.teacher_hm_clamp, group,
     )
     total = det_loss + dcfg.w_feature * l_feat + dcfg.w_rel * l_rel + dcfg.w_resp * (l_cls + l_reg)
     metrics.update(loss_feature=l_feat, loss_bev_rel=l_rel, loss_resp_cls=l_cls,
                    loss_resp_reg=l_reg, loss_det=det_loss)
-    return _update(state, total, optimizer, metrics)
+    return _update(state, total, optimizer, metrics, group)
 
 
 def metrics_to_host(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
