@@ -127,6 +127,30 @@ Phases, each printed on its own line:
            modelled L2 bytes; the kernels line carries s2
   subm prod vs fused   ms/conv of both paths per stage and their max |diff|
            (within 2e-2 of max |prod|)
+  export camera, export lidar, export fusion, export lidar host_voxels
+           each detector at full width, batch 4 (seeded weights, BatchNorm
+           calibrated) exported on the card with
+           `serving.export.export_detector` ("points" mode; the LiDAR
+           detector also "host_voxels") into a temporary directory; a fresh
+           process (`chip_smoke.py load-artifacts`, which imports
+           `serving.export` and nothing of models, layers or training, and
+           says so) loads each artifact and predicts on two batches whose
+           LiDAR stages hold other site counts; masks and labels must equal
+           the live `Detector.predict`'s, boxes and scores within
+           EXPORT_TOL_OF_MAX, and the loaded process must launch K1-K4 as
+           often a request as the live detector. Prints export s, artifact
+           MB, load s, the loaded program's median latency (on device
+           inputs) against the live request's, `predict`'s with numpy in
+           and out, launches, sites per stage and bit_equal
+  launch path  each custom op `unidistill::*` against a direct call of its
+           bare ctypes wrapper on the export phases' recorded request
+           arguments (K1-K4) and their gradients' shapes (K5, K4 dgrad,
+           K6): host us a call (median, the card idle before each call,
+           rounds op, bare, bare, op), device ms of both from
+           torch.profiler, results bit-equal
+  flops    `utils.flops.model_flops_per_frame` of the three eval forwards
+           (batch 4) and `matmul_flops` of one camera<-LiDAR distill step,
+           a frame, with the JAX package's pins beside them
   cli distill lidar->camera   the launchers' CLIs at full width, in a
            temporary directory: `serving.synthetic.write_nuscenes` writes an
            on-disk nuScenes (12 training and 4 validation frames, six
@@ -184,11 +208,13 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -279,6 +305,21 @@ DDP_LOSS_RTOL = 1e-6
 # with no group are; else within this multiple of their difference (the
 # backward of grid_sample and of the losses' gathers adds with atomics)
 DDP_NCCL_SPREAD = 4.0
+# the export phases: calls timed for the loaded and the live latency
+# (medians), the loading process's time limit, and the loaded artifact's
+# boxes and scores against the live detector's, as max |diff| over max(1,
+# max |ref|): the same kernels and aten ops run (cuDNN benchmarking off, eval
+# BatchNorm without cuDNN in both), so equal bits are expected; the
+# tolerance would admit an ulp of f32 at the boxes' scale
+EXPORT_LATENCY_CALLS = 10
+EXPORT_BATCH_SEEDS = (50, 150)
+EXPORT_LOAD_TIMEOUT_S = 600
+EXPORT_TOL_OF_MAX = 1e-6
+# [launch path]: host calls timed a round
+LAUNCH_PATH_CALLS = 30
+# the JAX package's eval-forward pins a frame (tests/test_flops.py), beside
+# the port's counts as a sanity note
+JAX_FLOPS_PINS = {"camera": 0.650e12, "lidar": 2.083e12, "fusion": 2.354e12}
 
 
 def log(phase, **kv):
@@ -1266,6 +1307,300 @@ def fusion_phases(dev) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the serving export, the ops' launch path, the FLOP counts
+# ---------------------------------------------------------------------------
+
+# the modules a loaded artifact must not need
+MODEL_MODULES = ("unidistill_torch.models", "unidistill_torch.layers", "unidistill_torch.training")
+
+
+def load_artifacts(jobs_path: str, out_path: str) -> int:
+    """The loading process of the export phases (`chip_smoke.py
+    load-artifacts JOBS OUT`): imports `unidistill_torch.serving.export` and
+    nothing of `models`, `layers` or `training`; for each artifact of the
+    pickled jobs, loads it (seconds), predicts on each batch, counts one
+    request's launches, and times `EXPORT_LATENCY_CALLS` calls of the loaded
+    program on the batch's device tensors and of `predict` (numpy in and
+    out; host clock ending in a synchronise); pickles the results."""
+    import pickle
+    import statistics
+    sys.path.insert(0, str(ROOT))
+    from unidistill_torch.kernels import build
+    from unidistill_torch.serving.export import load_detector
+    with open(jobs_path, "rb") as f:
+        jobs = pickle.load(f)
+    out = {}
+    for name, job in jobs.items():
+        t0 = time.perf_counter()
+        det = load_detector(job["path"])
+        load_s = time.perf_counter() - t0
+        rois = [det.predict(b) for b in job["batches"]]
+        build.reset_launches()
+        det.predict(job["batches"][0])
+        launches = dict(build.LAUNCHES)
+        inputs = det.inputs(job["batches"][0])
+        times = {"program": [], "predict": []}
+        with torch.no_grad():
+            for _ in range(EXPORT_LATENCY_CALLS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                det.program(inputs)
+                torch.cuda.synchronize()
+                times["program"].append(time.perf_counter() - t0)
+        for _ in range(EXPORT_LATENCY_CALLS):
+            t0 = time.perf_counter()
+            det.predict(job["batches"][0])  # ends in the outputs' copy to the host
+            times["predict"].append(time.perf_counter() - t0)
+        out[name] = dict(load_s=load_s, rois=rois, launches=launches,
+                         **{f"{k}_ms": statistics.median(v) * 1e3 for k, v in times.items()})
+        del det, inputs
+        torch.cuda.empty_cache()
+    out["modules"] = sorted(m for m in sys.modules
+                            if m.startswith(MODEL_MODULES) or m.split(".")[0] in ("jax", "unidistill_tpu"))
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def _numpy_tree(batch):
+    return {k: _numpy_tree(v) if isinstance(v, dict) else v.cpu().numpy() for k, v in batch.items()}
+
+
+def export_phases(dev) -> dict:
+    """The serving export of the three detectors at full width, batch 4
+    (seeded weights, BatchNorm calibrated): export on the card, save, load
+    in a fresh process, predict on two batches of other seeds, compare with
+    the live `Detector.predict`. Returns the kernels' recorded arguments of
+    the live requests, for the launch path."""
+    import pickle
+    import statistics
+    import tempfile
+    from unidistill_torch.configs.nuscenes import camera_exp, fusion_exp, lidar_exp
+    from unidistill_torch.kernels import build
+    from unidistill_torch.layers.lidar_encoder import build_rulebooks, stage_shapes
+    from unidistill_torch.ops import bev_pool, nms, sparse_conv
+    from unidistill_torch.serving.export import _batch_spec, _flatten_paths, export_detector
+    from unidistill_torch.serving.predictor import Detector
+    from unidistill_torch.serving.synthetic import calibrate_batchnorm, random_state_dict, train_batch
+    from unidistill_torch.training.steps import model_inputs, voxelize_batch
+
+    t_phase = time.time()
+    recorded = {}
+    # (name, config, input mode, weight seed); every detector takes its keys
+    # of the same two camera + LiDAR batches
+    cases = (("camera", camera_exp, "points", 50), ("lidar", lidar_exp, "points", 51),
+             ("fusion", fusion_exp, "points", 52), ("lidar host_voxels", lidar_exp, "host_voxels", 51))
+    fcfg = fusion_exp().model
+    full_batches = [to_device(train_batch(fcfg, fcfg, BATCH, seed=s), dev) for s in EXPORT_BATCH_SEEDS]
+    with tempfile.TemporaryDirectory(prefix="unidistill_export_") as tmp:
+        jobs, live = {}, {}
+        for name, exp, mode, seed in cases:
+            cfg = exp().model
+            batches = []
+            for full in full_batches:
+                b = {k: full[k] for k in _flatten_paths(_batch_spec(cfg, BATCH)) if "/" not in k}
+                if cfg.with_camera:
+                    b["mats"] = full["mats"]
+                if mode == "host_voxels":
+                    b = dict(voxelize_batch(full, cfg, dev, training=False), gt_boxes=full["gt_boxes"])
+                batches.append(b)
+            det = Detector(cfg, random_state_dict(cfg, seed=seed), device=dev)
+            calibrate_batchnorm(det.model, model_inputs(batches[0], cfg, dev, training=False))
+            if cfg.with_lidar:  # the stages' active sites of each batch
+                sites = []
+                for b in batches:
+                    kw = model_inputs(b, cfg, dev, training=False)
+                    rb = build_rulebooks(kw["voxel_feats"].float(), kw["voxel_coords"],
+                                         stage_shapes(cfg.lidar_encoder.grid_size))
+                    sites.append([st.keys.numel() for st in rb.sites])
+                if any(a == b for a, b in zip(*sites)):
+                    raise RuntimeError(f"[export {name}] the two batches share a stage's site count: {sites}")
+            else:
+                sites = None
+            # the live detector: ROIs, one request's launches, latency
+            recorders = ([Recorder(bev_pool, "bev_pool_cells_cuda"), Recorder(sparse_conv, "sparse_conv_cuda"),
+                          Recorder(nms, "rotated_iou_mask_cuda"), Recorder(nms, "nms_greedy_select_cuda")]
+                         if mode == "points" and name != "fusion" else [])
+            with contextlib.ExitStack() as stack:
+                for r in recorders:
+                    stack.enter_context(r)
+                rois = [det.predict(batches[0])]
+            rois.append(det.predict(batches[1]))
+            for r in recorders:
+                if r.calls:
+                    recorded.setdefault(r.name, [a for a, _ in r.calls])
+            torch.cuda.synchronize()
+            build.reset_launches()
+            det.predict(batches[0])
+            torch.cuda.synchronize()
+            live_launches = dict(build.LAUNCHES)
+            lat = []
+            for _ in range(EXPORT_LATENCY_CALLS):
+                t0 = time.perf_counter()
+                det.predict(batches[0])
+                torch.cuda.synchronize()
+                lat.append(time.perf_counter() - t0)
+            path = str(Path(tmp) / name.replace(" ", "_"))
+            t0 = time.perf_counter()
+            export_detector(cfg, det.model.state_dict(), path, batch_size=BATCH, input_mode=mode, device=dev)
+            export_s = time.perf_counter() - t0
+            live[name] = dict(rois=[{k: v.cpu().numpy() for k, v in r.items()} for r in rois],
+                              launches=live_launches, ms=statistics.median(lat) * 1e3, export_s=export_s,
+                              mb=os.path.getsize(Path(path) / "model.pt2") / 1e6, sites=sites)
+            jobs[name] = dict(path=path, batches=[_numpy_tree(b) for b in batches])
+            del det, batches, rois
+            torch.cuda.empty_cache()
+        del full_batches
+        with open(Path(tmp) / "jobs.pkl", "wb") as f:
+            pickle.dump(jobs, f)
+        del jobs
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "load-artifacts",
+                               str(Path(tmp) / "jobs.pkl"), str(Path(tmp) / "out.pkl")],
+                              capture_output=True, text=True, timeout=EXPORT_LOAD_TIMEOUT_S)
+        process_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"[export] the loading process failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+        with open(Path(tmp) / "out.pkl", "rb") as f:
+            loaded = pickle.load(f)
+    if loaded["modules"]:
+        raise RuntimeError(f"[export] the loading process imported {loaded['modules']}")
+    for name, _, mode, _ in cases:
+        got, ref = loaded[name], live[name]
+        errs, bit_equal = {}, True
+        for g, r in zip(got["rois"], ref["rois"]):
+            for k in ("mask", "labels"):
+                if not np.array_equal(g[k], r[k]):
+                    raise RuntimeError(f"[export {name}] the loaded artifact's {k} differ from the live detector's")
+            for k in ("boxes", "scores"):
+                d = float(np.abs(g[k].astype(np.float64) - r[k]).max())
+                errs[k] = max(errs.get(k, 0.0), d)
+                bit_equal &= bool(np.array_equal(g[k], r[k]))
+                if d > EXPORT_TOL_OF_MAX * max(1.0, float(np.abs(r[k]).max())):
+                    raise RuntimeError(f"[export {name}] {k} differ by {d:.3e} from the live detector's")
+        if got["launches"] != ref["launches"]:
+            raise RuntimeError(f"[export {name}] the loaded artifact launched {got['launches']} a request, "
+                               f"the live detector {ref['launches']}")
+        log(f"export {name}", input_mode=mode, batch=BATCH, export_s=f"{ref['export_s']:.2f}",
+            artifact_mb=f"{ref['mb']:.1f}", load_s=f"{got['load_s']:.2f}",
+            loaded_program_ms=f"{got['program_ms']:.3f}", live_predict_ms=f"{ref['ms']:.3f}",
+            loaded_over_live=f"{got['program_ms'] / ref['ms']:.4f}",
+            loaded_predict_ms_numpy=f"{got['predict_ms']:.3f}", latency_calls=EXPORT_LATENCY_CALLS,
+            launches=json.dumps(got["launches"], sort_keys=True),
+            kept_boxes=[int(r["mask"].sum()) for r in got["rois"]], sites_per_stage=ref["sites"],
+            bit_equal=str(bit_equal).lower(), max_abs_err_boxes=f"{errs['boxes']:.3e}",
+            max_abs_err_scores=f"{errs['scores']:.3e}", tol=f"masks and labels equal, "
+            f"boxes and scores within {EXPORT_TOL_OF_MAX} of max(1, max|ref|)")
+    log("export", seconds=f"{time.time() - t_phase:.1f}", loading_process_s=f"{process_s:.1f}",
+        loading_process_modules="none of models/layers/training")
+    return recorded
+
+
+def host_us(fn, n=None):
+    """Median host time of one call of fn, the card idle before each call:
+    the time to return, the launch's enqueue included, the kernel's run not."""
+    import statistics
+    ts = []
+    for _ in range(n or LAUNCH_PATH_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(ts) * 1e6
+
+
+def launch_path_phase(recorded) -> None:
+    """Each op's dispatch (`torch.ops.unidistill.*`) against a direct call of
+    its bare ctypes wrapper, on the arguments recorded in the export phases'
+    live requests (K1-K4) and on those shapes' gradients (K5, K4 dgrad, K6):
+    host µs a call (median of LAUNCH_PATH_CALLS, the card idle before each
+    call) and the device ms of all the calls' kernels from torch.profiler,
+    with the two results equal bit for bit."""
+    from unidistill_torch.experiments.harness import kernel_ms
+    from unidistill_torch.ops import bev_pool, nms, sparse_conv
+    ops = torch.ops.unidistill
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    pool = recorded["bev_pool_cells_cuda"][0]
+    cell, depth, context, ncells = pool
+    g_pool = torch.randn(depth.shape[0], ncells, context.shape[-1], device="cuda", generator=gen)
+    convs = [a[:3] + (a[3] if len(a) > 3 else None,) for a in recorded["sparse_conv_cuda"]]
+    grads = []
+    for f, nbr, w, b in convs:
+        g = torch.randn(nbr.shape[0], w.shape[2], device="cuda", generator=gen).to(f.dtype)
+        grads.append((f, nbr, w, g, sparse_conv.transpose_rules(nbr, f.shape[0])))
+    dgrads = [(g, nbr_t, w) for f, nbr, w, g, nbr_t in grads if w.shape[1] in sparse_conv.K4_COUTS]
+    wgrads = [(f, g, nbr) for f, nbr, w, g, nbr_t in grads]
+    rows = (
+        ("bev_pool", "K1", ops.bev_pool, bev_pool.bev_pool_cells_cuda, [pool]),
+        ("bev_pool_bwd", "K5", ops.bev_pool_bwd, bev_pool.bev_pool_bwd_cuda, [(cell, depth, context, g_pool, ncells)]),
+        ("rotated_iou_mask", "K2", ops.rotated_iou_mask, nms.rotated_iou_mask_cuda,
+         recorded["rotated_iou_mask_cuda"][:1]),
+        ("nms_greedy_select", "K3", ops.nms_greedy_select, nms.nms_greedy_select_cuda,
+         recorded["nms_greedy_select_cuda"][:1]),
+        ("sparse_conv", "K4", ops.sparse_conv, sparse_conv.sparse_conv_cuda, convs),
+        ("sparse_conv_dgrad", "K4 dgrad", ops.sparse_conv_dgrad, sparse_conv.sparse_conv_dgrad_cuda, dgrads),
+        ("sparse_conv_wgrad", "K6", ops.sparse_conv_wgrad, sparse_conv.sparse_conv_wgrad_cuda, wgrads),
+    )
+    with torch.no_grad():
+        for name, kernel, op, bare, calls in rows:
+            for args in calls:
+                a, b = op(*args), bare(*args)
+                for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+                    if not torch.equal(x, y):
+                        raise RuntimeError(f"[launch path] unidistill::{name} and its bare wrapper differ")
+            # op, bare, bare, op: the host clock drifts
+            us = {"op": [], "bare": []}
+            for which in ("op", "bare", "bare", "op"):
+                fn = op if which == "op" else bare
+                us[which].append(sum(host_us(lambda: fn(*args)) for args in calls) / len(calls))
+            dev_ms = {w: kernel_ms(lambda: [(op if w == "op" else bare)(*args) for args in calls], None, iters=5)
+                      for w in ("op", "bare")}
+            op_us, bare_us = sum(us["op"]) / 2, sum(us["bare"]) / 2
+            log("launch path", op=f"unidistill::{name}", kernel=repr(kernel), calls=len(calls),
+                host_us_op=f"{op_us:.1f}", host_us_bare=f"{bare_us:.1f}", added_us=f"{op_us - bare_us:.1f}",
+                device_ms_op=f"{dev_ms['op']:.4f}" if dev_ms["op"] is not None else "not measured",
+                device_ms_bare=f"{dev_ms['bare']:.4f}" if dev_ms["bare"] is not None else "not measured",
+                rounds=[round(x, 1) for x in us["op"] + us["bare"]], bit_equal="true")
+
+
+def flops_phase(dev, batch_np, teacher_sd) -> None:
+    """`utils.flops.model_flops_per_frame` of the three eval forwards (batch
+    4, seeded weights and clouds), and `matmul_flops` of one camera<-LiDAR
+    distill step (forward + backward) on the distill train batch, a frame;
+    the JAX package's pins beside them (a sanity note: the JAX LiDAR counts
+    stage caps, the port the clouds' sites)."""
+    from unidistill_torch.configs.nuscenes import DISTILL_VARIANTS, camera_exp, distill_exp, fusion_exp, lidar_exp
+    from unidistill_torch.models.bevfusion import BEVFusionCenterHead
+    from unidistill_torch.training import steps
+    from unidistill_torch.training.train_state import TrainState, make_optimizer
+    from unidistill_torch.utils.flops import matmul_flops, model_flops_per_frame
+    t0 = time.time()
+    for name, exp in (("camera", camera_exp), ("lidar", lidar_exp), ("fusion", fusion_exp)):
+        got = model_flops_per_frame(exp().model, batch=BATCH, device=dev)
+        log("flops", path=f"{name} eval forward", batch=BATCH, tflop_per_frame=f"{got['total'] / 1e12:.4f}",
+            dense_conv=f"{got['conv'] / 1e12:.4f}", sparse_conv=f"{got['sparse_conv'] / 1e12:.4f}",
+            matmul=f"{got['dot_general'] / 1e12:.4f}", jax_pin=f"{JAX_FLOPS_PINS[name] / 1e12:.3f}")
+        torch.cuda.empty_cache()
+    s_cfg, t_cfg = camera_exp().model, lidar_exp().model
+    teacher = BEVFusionCenterHead(t_cfg)
+    teacher.load_state_dict(teacher_sd)
+    teacher.to(dev).requires_grad_(False).eval()
+    student = student_model(s_cfg, 0, dev)
+    opt = make_optimizer(student, distill_exp("lidar", "camera").train)
+    state = TrainState()
+    batch = to_device(batch_np, dev)
+    got = matmul_flops(lambda: steps.distill_train_step(state, batch, student, teacher, opt, s_cfg, t_cfg,
+                                                        DISTILL_VARIANTS[("lidar", "camera")]))
+    log("flops", path="distill lidar->camera step (teacher forward, student forward + backward)", batch=BATCH,
+        tflop_per_frame=f"{got['total'] / BATCH / 1e12:.4f}", dense_conv=f"{got['conv'] / BATCH / 1e12:.4f}",
+        sparse_conv=f"{got['sparse_conv'] / BATCH / 1e12:.4f}",
+        matmul=f"{got['dot_general'] / BATCH / 1e12:.4f}", seconds=f"{time.time() - t0:.1f}")
+    del teacher, student, opt, state, batch
+    torch.cuda.empty_cache()
+
+
 def repo_files() -> dict:
     """Every file under the checkout but bytecode caches and the kernel
     build, with its size and modification time."""
@@ -1973,6 +2308,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     fusion_phases(dev)
     torch.cuda.empty_cache()
+    launch_path_phase(export_phases(dev))
+    torch.cuda.empty_cache()
+    flops_phase(dev, *distill_inputs)
+    torch.cuda.empty_cache()
     cli_phases(dev)
     torch.cuda.empty_cache()
     ddp_phases(dev, *distill_inputs)
@@ -1988,4 +2327,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["load-artifacts"]:  # the export phases' loading process
+        sys.exit(load_artifacts(*sys.argv[2:4]))
     sys.exit(main())

@@ -37,7 +37,7 @@ and in bfloat16 (bf16 products are exact in f32, so only the summation order
 differs; empty tiles and taps give exact zeros; the bf16 instance runs on
 the tensor cores, whose bf16 products are exact in f32 as the plain
 version's are); K4 as the input gradient on
-strided maps as K4 forward; `SparseConv`'s gradients against autograd of the
+strided maps as K4 forward; `unidistill::sparse_conv`'s gradients against autograd of the
 plain version (f32 rtol/atol 1e-4 of the scale; bf16 2e-2 of the scale: dfeat
 rounds once to bf16, dW is summed over bf16-rounded g in another order)
 and against float64 central differences of the conv (f32, rtol 1e-3: the

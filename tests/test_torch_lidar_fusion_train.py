@@ -9,8 +9,9 @@ the port's `train_step`, float32 on the CPU at `tiny_model` shapes, with the
 experiment's optimizer (`lidar_exp().train`, lr 1e-3; `fusion_exp().train`,
 lr 1e-3). The JAX encoder is its default chunked one with its stage caps
 raised so that none binds (tests/test_torch_lidar_detector.py). The port's
-LiDAR encoder trains through `SparseConv`'s backward, here on the CPU its
-plain version's autograd.
+LiDAR encoder trains through the backward registered on the custom op
+`unidistill::sparse_conv`, here on the CPU the plain versions of its
+kernels (the input gradient over the transposed map, and K6).
 
 Tolerances, those of the camera step: loss and every metric rtol 1e-4; every
 gradient within 2e-3 of its scale (the larger of the tensor's max |g| and

@@ -1,8 +1,9 @@
-"""The sparse conv's backward: the port's plain path against `jax.vjp` of
-the JAX package's sparse convs, its transposed maps, and the wiring of
-`SparseConv` (K4 forward, K4 over the transposed map for the input
-gradient, K6 for the weight gradient; on the card only, so here the
-kernels are swapped for their plain versions).
+"""The sparse conv's backward: the port's path on the CPU (the custom op
+`unidistill::sparse_conv` and its registered backward, which run the plain
+versions of the kernels here) against `jax.vjp` of the JAX package's sparse
+convs, its transposed maps, and the wiring of the op's backward (K4 over
+the transposed map for the input gradient, K6 for the weight gradient; on
+the card those kernels, here their plain versions, counted).
 
 Inputs are the clustered voxel sets of tests/test_torch_sparse_conv.py.
 Tolerances: against the per-voxel f32 `subm_conv_batched` and
@@ -38,12 +39,17 @@ def cotangent(n, cout, seed):
     return np.random.RandomState(seed).randn(n, cout).astype(np.float32)
 
 
-def port_grads(feats, nbr, w, bias, g):
-    """Autograd of the port's plain sparse conv: (dfeat, dW, dbias)."""
+# the plain versions as the module defines them (a fixture below wraps them)
+PLAIN_FWD, PLAIN_DGRAD, PLAIN_WGRAD = sc.sparse_conv_plain, sc.sparse_conv_dgrad_plain, sc.sparse_conv_wgrad_plain
+
+
+def port_grads(feats, nbr, w, bias, g, conv=sc.sparse_conv):
+    """Autograd of the port's sparse conv (the op, or `conv`): (dfeat, dW,
+    dbias)."""
     f = feats.clone().requires_grad_(True)
     wt = torch.from_numpy(w).requires_grad_(True)
     b = None if bias is None else torch.from_numpy(bias).requires_grad_(True)
-    sc.sparse_conv(f, nbr, wt, b).backward(torch.from_numpy(g))
+    conv(f, nbr, wt, b).backward(torch.from_numpy(g))
     return f.grad.numpy(), wt.grad.numpy(), None if b is None else b.grad.numpy()
 
 
@@ -159,7 +165,7 @@ def test_plain_backward_kernels_match_autograd(name):
         n_in = pst.keys.numel()
     w = weights(nbr.shape[1], 8, 16, 43)
     g = cotangent(nbr.shape[0], 16, 44)
-    df, dw, _ = port_grads(pst.features, nbr, w, None, g)
+    df, dw, _ = port_grads(pst.features, nbr, w, None, g, conv=PLAIN_FWD)
     gt, wt = torch.from_numpy(g), torch.from_numpy(w)
     assert_close(sc.sparse_conv_dgrad_plain(gt, sc.transpose_rules(nbr, n_in), wt).numpy(), df)
     assert_close(sc.sparse_conv_wgrad_plain(pst.features, gt, nbr).numpy(), dw)
@@ -167,27 +173,33 @@ def test_plain_backward_kernels_match_autograd(name):
 
 @pytest.fixture
 def plain_kernels(monkeypatch):
-    """`SparseConv` with the kernel launches swapped for their plain
-    versions (same signatures), counting the calls."""
-    calls = []
+    """The plain versions that the ops' CPU bodies look up at each call,
+    wrapped to count the calls (the outermost only: the input gradient's
+    plain version is the forward's on the transposed map)."""
+    calls, inside = [], []
 
     def counted(name, fn):
         def wrapped(*args):
-            calls.append(name)
-            return fn(*args)
+            if not inside:
+                calls.append(name)
+            inside.append(name)
+            try:
+                return fn(*args)
+            finally:
+                inside.pop()
         return wrapped
-    monkeypatch.setattr(sc, "sparse_conv_cuda", counted("fwd", sc.sparse_conv_plain))
-    monkeypatch.setattr(sc, "sparse_conv_dgrad_cuda", counted("dgrad", sc.sparse_conv_dgrad_plain))
-    monkeypatch.setattr(sc, "sparse_conv_wgrad_cuda", counted("wgrad", sc.sparse_conv_wgrad_plain))
+    monkeypatch.setattr(sc, "sparse_conv_plain", counted("fwd", PLAIN_FWD))
+    monkeypatch.setattr(sc, "sparse_conv_dgrad_plain", counted("dgrad", PLAIN_DGRAD))
+    monkeypatch.setattr(sc, "sparse_conv_wgrad_plain", counted("wgrad", PLAIN_WGRAD))
     return calls
 
 
 @pytest.mark.parametrize("given_nbr_t", [True, False], ids=["shared_map", "built_in_backward"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_sparse_conv_function_wiring(plain_kernels, given_nbr_t, dtype):
-    """Gradients of `SparseConv` equal autograd of the plain version; g is
-    cast to the features' dtype before the input gradient, dW and dbias come
-    back in the dtype of their inputs."""
+    """Gradients through `unidistill::sparse_conv` equal autograd of the
+    plain version; g is cast to the features' dtype before the input
+    gradient, dW and dbias come back in the dtype of their inputs."""
     k, s, p, shape, out_shape = DOWNS["down4"]
     _, pst, _ = voxel_set(shape, seed=45)
     nbr = sc.down_rules(pst, sc.downsample_sites(pst, k, s, p, out_shape), k, s, p)
@@ -200,9 +212,9 @@ def test_sparse_conv_function_wiring(plain_kernels, given_nbr_t, dtype):
     for out, leaves in ((got, "function"), (ref, "plain")):
         xx, ww, bb = (t.clone().requires_grad_(True) for t in (x, w, b))
         if leaves == "function":
-            y = sc.SparseConv.apply(xx, nbr, ww, bb, nbr_t)
+            y = sc.sparse_conv(xx, nbr, ww, bb, nbr_t)
         else:
-            y = sc.sparse_conv_plain(xx, nbr, ww, bb)
+            y = PLAIN_FWD(xx, nbr, ww, bb)
         y.backward(g)
         out += [xx.grad, ww.grad, bb.grad]
     assert plain_kernels == ["fwd", "dgrad", "wgrad"]
@@ -217,7 +229,7 @@ def test_sparse_conv_function_skips_the_input_gradient(plain_kernels):
     _, pst, _ = voxel_set(S3, seed=49)
     nbr = sc.subm_rules(pst)
     w = torch.from_numpy(weights(27, 8, 16, 50)).requires_grad_(True)
-    sc.SparseConv.apply(pst.features, nbr, w, None, None).sum().backward()
+    sc.sparse_conv(pst.features, nbr, w).sum().backward()
     assert plain_kernels == ["fwd", "wgrad"] and w.grad is not None
 
 

@@ -5,7 +5,9 @@ once for each tree, in the order parent, change, change, parent.
     python tools/op_times.py cells OUT.pt
     python tools/op_times.py k5 TREE CELLS.pt
     python tools/op_times.py voxelize TREE
-    python tools/op_times.py predict TREE lidar|fusion
+    python tools/op_times.py predict TREE camera|lidar|fusion
+    python tools/op_times.py step TREE distill|lidar
+    python tools/op_times.py bn TREE camera|lidar|fusion [ROUNDS]
     python tools/op_times.py nms_cells OUT.pt
     python tools/op_times.py nms TREE NMS_CELLS.pt
     python tools/op_times.py band_cells OUT.pt
@@ -30,13 +32,26 @@ on the card, the mean of 50 launches by CUDA events), holds it against
 TREE's plain version at rtol/atol 1e-5 of max |ref| and two runs
 bit-identical. `voxelize` times TREE's voxeliser on four full-size
 10-sweep clouds at the eval cap: device ms by CUDA events and wall ms by
-the host clock, the mean of 20 calls. `predict` serves TREE's LiDAR or
-fusion detector (`lidar_exp()` / `fusion_exp()`, full width, seeded random
+the host clock, the mean of 20 calls. `predict` serves TREE's camera, LiDAR or
+fusion detector (`camera_exp()` / `lidar_exp()` / `fusion_exp()`, full width, seeded random
 weights, BatchNorm calibrated on the batch) on `train_batch(cfg, cfg, 4,
 seed=21)`: two warm-up requests, then 20 timed by the host clock around
-work that ends in a synchronise, as `chip_smoke.py` times a request. Each
-prints one JSON line per measurement, after the card's name and power
-limit.
+work that ends in a synchronise, as `chip_smoke.py` times a request.
+`step` trains with TREE's camera<-LiDAR `distill_train_step` (`distill`:
+the camera student, seed 0, from the LiDAR teacher, seed 10, BatchNorm
+calibrated) or the LiDAR detector's `train_step` (`lidar`, seed 30) on
+`train_batch(camera, lidar, 4, seed=21)`, as `chip_smoke.py` [distill
+train] and [lidar train] do: two warm-up steps, then 10 timed by the host
+clock around a step and its one metrics read-back. `bn` serves TREE's
+detector as `predict` does, in one process, with its eval BatchNorm in two
+forms by turns (ROUNDS rounds, default 8, in the order A B B A ...):
+"shipped", TREE's own `layers/common.BatchNorm`, and "cudnn",
+`F.batch_norm` with cuDNN on; each round is 20 requests timed as
+`predict` times them. It prints each round's median, the median of each
+form's round medians, the device ms a request of each form's BatchNorm
+kernels and of all its kernels (torch.profiler, 3 requests), and the max
+|difference| of the two forms' boxes and scores. Each prints one JSON line
+per measurement, after the card's name and power limit.
 
 `nms_cells` writes, with this tree, four sets of NMS lanes (24 lanes x 512
 rows, threshold 0.1, post 100): the lanes that `Detector.predict` hands to
@@ -199,11 +214,11 @@ def voxelize(tree):
 
 def predict(tree, modality):
     sys.path.insert(0, tree)
-    from unidistill_torch.configs.nuscenes import fusion_exp, lidar_exp
+    from unidistill_torch.configs.nuscenes import camera_exp, fusion_exp, lidar_exp
     from unidistill_torch.serving.predictor import Detector
     from unidistill_torch.serving.synthetic import calibrate_batchnorm, random_state_dict, train_batch
     from unidistill_torch.training.steps import model_inputs
-    cfg = {"lidar": lidar_exp, "fusion": fusion_exp}[modality]().model
+    cfg = {"camera": camera_exp, "lidar": lidar_exp, "fusion": fusion_exp}[modality]().model
     dev = torch.device("cuda")
 
     def to_device(batch):
@@ -211,7 +226,7 @@ def predict(tree, modality):
     batch = to_device(train_batch(cfg, cfg, B, seed=SEED))
     det = Detector(cfg, random_state_dict(cfg, seed=40), device="cuda")
     calibrate_batchnorm(det.model, model_inputs(batch, cfg, dev, training=False))
-    keys = ("points", "points_mask", "imgs", "mats") if modality == "fusion" else ("points", "points_mask")
+    keys = (("points", "points_mask") if cfg.with_lidar else ()) + (("imgs", "mats") if cfg.with_camera else ())
     request = {k: batch[k] for k in keys}
     lat = []
     for i in range(22):
@@ -224,6 +239,116 @@ def predict(tree, modality):
     print(json.dumps(dict(tree=tree, op=f"{modality} predict", requests=len(lat),
                           mean_ms=round(sum(lat) / len(lat), 3), median_ms=round(lat[len(lat) // 2], 3),
                           min_ms=round(lat[0], 3), max_ms=round(lat[-1], 3))), flush=True)
+
+
+def _bn_kernel(name):
+    n = name.lower()
+    return "batch_norm" in n or "bn_fw" in n
+
+
+def bn(tree, modality, rounds="8"):
+    sys.path.insert(0, tree)
+    import torch.nn.functional as F
+    from unidistill_torch.configs.nuscenes import camera_exp, fusion_exp, lidar_exp
+    from unidistill_torch.layers.common import BatchNorm
+    from unidistill_torch.serving.predictor import Detector
+    from unidistill_torch.serving.synthetic import calibrate_batchnorm, random_state_dict, train_batch
+    from unidistill_torch.training.steps import model_inputs
+    cfg = {"camera": camera_exp, "lidar": lidar_exp, "fusion": fusion_exp}[modality]().model
+    dev = torch.device("cuda")
+    assert torch.backends.cudnn.enabled
+
+    def to_device(batch):
+        return {k: to_device(v) if isinstance(v, dict) else torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    batch = to_device(train_batch(cfg, cfg, B, seed=SEED))
+    det = Detector(cfg, random_state_dict(cfg, seed=40), device="cuda")
+    calibrate_batchnorm(det.model, model_inputs(batch, cfg, dev, training=False))
+    keys = (("points", "points_mask") if cfg.with_lidar else ()) + (("imgs", "mats") if cfg.with_camera else ())
+    request = {k: batch[k] for k in keys}
+    shipped = BatchNorm.forward
+
+    def cudnn_forward(self, x):
+        if self.training:
+            return shipped(self, x)
+        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+    forms = {"shipped": shipped, "cudnn": cudnn_forward}
+
+    def timed():
+        lat = []
+        for i in range(22):
+            t0 = time.perf_counter()
+            det.predict(request)
+            torch.cuda.synchronize()
+            if i >= 2:
+                lat.append((time.perf_counter() - t0) * 1e3)
+        lat.sort()
+        return lat[len(lat) // 2]
+    outs, device, medians = {}, {}, {f: [] for f in forms}
+    for form, fwd in forms.items():
+        BatchNorm.forward = fwd
+        outs[form] = det.predict(request)
+        records = _timing._profiled(lambda: det.predict(request), None, 3)
+        bn_records = {k: v for k, v in records.items() if _bn_kernel(k)}
+        device[form] = dict(bn_device_ms=round(_timing._per_call(bn_records, 3)[0], 4),
+                            all_device_ms=round(_timing._per_call(records, 3)[0], 4),
+                            bn_kernels=sorted(bn_records))
+    order = ["shipped", "cudnn", "cudnn", "shipped"]
+    for r in range(int(rounds)):
+        form = order[r % 4]
+        BatchNorm.forward = forms[form]
+        medians[form].append(timed())
+        print(json.dumps(dict(tree=tree, op=f"{modality} bn round", round=r, form=form,
+                              median_ms=round(medians[form][-1], 3))), flush=True)
+    BatchNorm.forward = shipped
+    diff = max(float((torch.as_tensor(outs["shipped"][k]).float() - torch.as_tensor(outs["cudnn"][k]).float())
+                     .abs().max()) for k in ("boxes", "scores"))
+    for form in forms:
+        m = sorted(medians[form])
+        print(json.dumps(dict(tree=tree, op=f"{modality} bn", form=form, rounds=len(m),
+                              median_of_rounds_ms=round((m[(len(m) - 1) // 2] + m[len(m) // 2]) / 2, 3),
+                              **device[form])), flush=True)
+    print(json.dumps(dict(tree=tree, op=f"{modality} bn", max_abs_diff_boxes_scores=diff)), flush=True)
+
+
+def step(tree, which):
+    sys.path.insert(0, tree)
+    from unidistill_torch.configs.nuscenes import DISTILL_VARIANTS, camera_exp, distill_exp, lidar_exp
+    from unidistill_torch.models.bevfusion import BEVFusionCenterHead
+    from unidistill_torch.serving.synthetic import calibrate_batchnorm, random_state_dict, train_batch
+    from unidistill_torch.training import steps
+    from unidistill_torch.training.train_state import TrainState, make_optimizer
+    s_cfg, t_cfg = camera_exp().model, lidar_exp().model
+    dev = torch.device("cuda")
+
+    def to_device(batch):
+        return {k: to_device(v) if isinstance(v, dict) else torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+    def model(cfg, seed):
+        m = BEVFusionCenterHead(cfg)
+        m.load_state_dict(random_state_dict(cfg, seed=seed))
+        return m.to(dev)
+    batch = to_device(train_batch(s_cfg, t_cfg, B, seed=21))
+    state = TrainState()
+    if which == "distill":
+        teacher = model(t_cfg, 10).requires_grad_(False)
+        calibrate_batchnorm(teacher, steps.model_inputs(batch, t_cfg, dev, training=False))
+        student = model(s_cfg, 0)
+        opt = make_optimizer(student, distill_exp("lidar", "camera").train)
+        fn = lambda: steps.distill_train_step(state, batch, student, teacher, opt, s_cfg, t_cfg,
+                                              DISTILL_VARIANTS[("lidar", "camera")])
+    else:
+        student = model(t_cfg, 30)
+        opt = make_optimizer(student, lidar_exp().train)
+        fn = lambda: steps.train_step(state, batch, student, opt, t_cfg)
+    ts = []
+    for i in range(12):
+        t0 = time.perf_counter()
+        steps.metrics_to_host(fn())
+        if i >= 2:
+            ts.append((time.perf_counter() - t0) * 1e3)
+    ts.sort()
+    print(json.dumps(dict(tree=tree, op=f"{which} step", steps=len(ts), median_ms=round((ts[4] + ts[5]) / 2, 3),
+                          min_ms=round(ts[0], 3), max_ms=round(ts[-1], 3))), flush=True)
 
 
 def nms_cells(out):
@@ -429,5 +554,5 @@ if __name__ == "__main__":
     if not torch.cuda.is_available():
         sys.exit("op_times: needs a CUDA device")
     print(_card(), flush=True)
-    {"cells": cells, "k5": k5, "voxelize": voxelize, "predict": predict, "nms_cells": nms_cells,
+    {"cells": cells, "k5": k5, "voxelize": voxelize, "predict": predict, "step": step, "bn": bn, "nms_cells": nms_cells,
      "nms": nms, "band_cells": band_cells, "band": band, "k10": k10, "k8": k8, "k7": k7}[sys.argv[1]](*sys.argv[2:])

@@ -9,7 +9,8 @@
     attribute holds 1 − m). Training normalises with the biased batch
     variance, as torch does, and also moves the running variance towards
     that biased variance, as flax does (torch would use the unbiased one).
-    Each instance takes the momentum of the JAX module it mirrors.
+    Each instance takes the momentum of the JAX module it mirrors. In eval
+    it runs torch's own kernel (cuDNN off), as an exported program does.
   * `conv_bn_act`: conv in the compute dtype, then BN (and ReLU) in float32.
 """
 from __future__ import annotations
@@ -51,8 +52,16 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         self._check_input_dim(x)
         if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                                False, 0.0, self.eps)
+            # torch's own kernel (no cuDNN), the op `torch.export` lowers an
+            # eval batch_norm to; it has no branch on an empty input, which a
+            # program traced with symbolic site counts could not take. The
+            # live model and its exported program run the same kernel. On an
+            # H100 it also served each detector faster than cuDNN's
+            # (`tools/op_times.py bn`). The op's name and signature are
+            # internal to torch: checked on torch 2.11 (CUDA 12.8) and 2.13
+            # (CPU).
+            return torch.ops.aten._native_batch_norm_legit_no_training(
+                x, self.weight, self.bias, self.running_mean, self.running_var, 0.0, self.eps)[0]
         self.num_batches_tracked.add_(1)
         # momentum None (used by calibration): the cumulative average
         f = self.momentum if self.momentum is not None else 1.0 / float(self.num_batches_tracked)

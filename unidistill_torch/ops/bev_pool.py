@@ -10,10 +10,10 @@ Counterpart of the JAX package's `ops/bev_pool.py`. Layouts are the JAX ones:
 Every frustum point whose (x, y, z) lies inside the grid adds
 depth[p] * context[ray(p)] into BEV cell (y, x); other points are dropped.
 
-On a CUDA tensor this runs `BevPool`, an autograd Function whose forward is
-a plan and kernel K1 and whose backward is kernel K5 (`csrc/bev_pool.cu`);
-on a CPU tensor it runs `bev_pool_outer_plain`, the same function in plain
-PyTorch, which autograd differentiates. The plan (`bev_pool_plan`, plain
+It runs the custom op `unidistill::bev_pool`: on a CUDA tensor a plan and
+kernel K1, with kernel K5 (`unidistill::bev_pool_bwd`) as its registered
+backward (`csrc/bev_pool.cu`); on a CPU tensor their plain versions
+`bev_pool_cells_plain` and `bev_pool_outer_bwd_plain`. The plan (`bev_pool_plan`, plain
 PyTorch on the tensors' device, no host sync) sorts the points stably by
 output row b*ncells + cell; K1 reduces each row's interval of that order
 with one warp and writes the row once, so its result is bit-identical from
@@ -46,26 +46,35 @@ def _linear_index(geom_xyz: torch.Tensor, nx: int, ny: int, nz: int) -> torch.Te
     return torch.where(valid, y * nx + x, torch.full_like(x, nx * ny))
 
 
+def bev_pool_cells_plain(
+    cell: torch.Tensor, depth: torch.Tensor, context: torch.Tensor, ncells: int,
+) -> torch.Tensor:
+    """Plain version of the plan and K1: materialise the [B, points, C]
+    product and index_add_ it into one extra drop row per sample. cell,
+    depth, context as `bev_pool_cells_cuda`; returns [B, ncells, C] in
+    float32, or in float64 for float64 inputs (finite-difference checks)."""
+    B = depth.shape[0]
+    C = context.shape[-1]
+    dt = torch.promote_types(torch.promote_types(depth.dtype, context.dtype), torch.float32)
+    idx = torch.where((cell >= 0) & (cell < ncells), cell, ncells).reshape(B, -1).long()
+    w = (depth.to(dt)[..., None] * context.to(dt)[:, :, None]).reshape(B, -1, C)
+    rows = idx + torch.arange(B, device=idx.device)[:, None] * (ncells + 1)
+    out = torch.zeros(B * (ncells + 1), C, dtype=dt, device=depth.device)
+    out.index_add_(0, rows.reshape(-1), w.reshape(-1, C))
+    return out.reshape(B, ncells + 1, C)[:, :ncells].contiguous()
+
+
 def bev_pool_outer_plain(
     geom_xyz: torch.Tensor,
     depth: torch.Tensor,
     context: torch.Tensor,
     voxel_num: Tuple[int, int, int],
 ) -> torch.Tensor:
-    """Plain version: materialise the [B, points, C] product and index_add_ it
-    into one extra drop row per sample. Computes in float32, or in float64
-    for float64 inputs (finite-difference checks)."""
-    B, NC, D, fH, fW = depth.shape
-    C = context.shape[-1]
+    """Plain version of `bev_pool_outer` (any device): `bev_pool_cells_plain`
+    on the points' cells."""
     nx, ny, nz = voxel_num
-    ncells = nx * ny
-    dt = torch.promote_types(torch.promote_types(depth.dtype, context.dtype), torch.float32)
-    idx = _linear_index(geom_xyz, nx, ny, nz).reshape(B, -1).long()
-    w = (depth.to(dt)[..., None] * context.to(dt)[:, :, None]).reshape(B, -1, C)
-    rows = idx + torch.arange(B, device=idx.device)[:, None] * (ncells + 1)
-    out = torch.zeros(B * (ncells + 1), C, dtype=dt, device=depth.device)
-    out.index_add_(0, rows.reshape(-1), w.reshape(-1, C))
-    return out.reshape(B, ncells + 1, C)[:, :ncells].reshape(B, ny, nx, C)
+    out = bev_pool_cells_plain(_linear_index(geom_xyz, nx, ny, nz), depth, context, nx * ny)
+    return out.reshape(depth.shape[0], ny, nx, context.shape[-1])
 
 
 def _check_tensors(fn: str, *specs) -> None:
@@ -268,20 +277,61 @@ def bev_pool_bwd_cuda(
     return g_depth, g_context
 
 
-class BevPool(torch.autograd.Function):
-    """K1 forward, K5 backward; no gradient for the cells."""
+# ---------------------------------------------------------------------------
+# the custom ops: the model path reaches K1 and K5 through these on both
+# devices (a CUDA tensor the kernel's wrapper, a CPU tensor its plain
+# version, each looked up by name at the call)
+# ---------------------------------------------------------------------------
 
-    @staticmethod
-    def forward(ctx, cell, depth, context, ncells):
-        ctx.save_for_backward(cell, depth, context)
-        ctx.ncells = ncells
-        return bev_pool_cells_cuda(cell, depth, context, ncells)
 
-    @staticmethod
-    def backward(ctx, g):
-        cell, depth, context = ctx.saved_tensors
-        g_depth, g_context = bev_pool_bwd_cuda(cell, depth, context, g.contiguous(), ctx.ncells)
-        return None, g_depth, g_context, None
+@torch.library.custom_op("unidistill::bev_pool", mutates_args=(), device_types="cuda")
+def bev_pool_op(cell: torch.Tensor, depth: torch.Tensor, context: torch.Tensor,
+                ncells: int) -> torch.Tensor:
+    """The plan and K1 (`bev_pool_cells_cuda`): [B, ncells, C] float32."""
+    return bev_pool_cells_cuda(cell, depth, context, ncells)
+
+
+@bev_pool_op.register_kernel("cpu")
+def _bev_pool_cpu(cell, depth, context, ncells):
+    return bev_pool_cells_plain(cell, depth, context, ncells)
+
+
+@bev_pool_op.register_fake
+def _bev_pool_fake(cell, depth, context, ncells):
+    return depth.new_empty(depth.shape[0], ncells, context.shape[-1], dtype=torch.float32)
+
+
+@torch.library.custom_op("unidistill::bev_pool_bwd", mutates_args=(), device_types="cuda")
+def bev_pool_bwd_op(cell: torch.Tensor, depth: torch.Tensor, context: torch.Tensor,
+                    g: torch.Tensor, ncells: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5 (`bev_pool_bwd_cuda`): (g_depth, g_context)."""
+    return bev_pool_bwd_cuda(cell, depth, context, g, ncells)
+
+
+@bev_pool_bwd_op.register_kernel("cpu")
+def _bev_pool_bwd_cpu(cell, depth, context, g, ncells):
+    return bev_pool_outer_bwd_plain(cell, depth, context, g, ncells)
+
+
+@bev_pool_bwd_op.register_fake
+def _bev_pool_bwd_fake(cell, depth, context, g, ncells):
+    return torch.empty_like(depth, dtype=torch.float32), torch.empty_like(context, dtype=torch.float32)
+
+
+def _bev_pool_setup(ctx, inputs, output):
+    cell, depth, context, ncells = inputs
+    ctx.save_for_backward(cell, depth, context)
+    ctx.ncells = ncells
+
+
+def _bev_pool_backward(ctx, g):
+    """K5; no gradient for the cells."""
+    cell, depth, context = ctx.saved_tensors
+    g_depth, g_context = torch.ops.unidistill.bev_pool_bwd(cell, depth, context, g.contiguous(), ctx.ncells)
+    return None, g_depth, g_context, None
+
+
+bev_pool_op.register_autograd(_bev_pool_backward, setup_context=_bev_pool_setup)
 
 
 def bev_pool_outer(
@@ -291,12 +341,10 @@ def bev_pool_outer(
     voxel_num: Tuple[int, int, int],
 ) -> torch.Tensor:
     """Fused depth x context BEV pooling -> [B, ny, nx, C] f32,
-    differentiable in depth and context."""
-    if not depth.is_cuda:
-        return bev_pool_outer_plain(geom_xyz, depth, context, voxel_num)
+    differentiable in depth and context, through `unidistill::bev_pool`."""
     B = depth.shape[0]
     C = context.shape[-1]
     nx, ny, nz = voxel_num
     cell = _linear_index(geom_xyz, nx, ny, nz).to(torch.int32).contiguous()
-    out = BevPool.apply(cell, depth.float().contiguous(), context.float().contiguous(), nx * ny)
+    out = torch.ops.unidistill.bev_pool(cell, depth.float().contiguous(), context.float().contiguous(), nx * ny)
     return out.reshape(B, ny, nx, C)

@@ -6,11 +6,13 @@ the IoU works on the BEV part (cx, cy, dx, dy, rot).
 
 On CUDA tensors:
   * `rotated_iou_bev` launches kernel K2 in float mode ([L, M, N] IoU);
-  * `nms_bev_batched` launches K2 in mask mode (the upper triangle of
+  * `nms_bev_batched` runs the custom ops `unidistill::rotated_iou_mask`,
+    kernel K2 in mask mode (the upper triangle of
     `(iou > thr) & valid[j]` packed into 64-bit words [L, C, C/64], the
     layout of mmdet3d's `iou3d_nms_cuda`; at thr >= 0 it clips only the
     pairs that `pairs_to_clip_plain` keeps, since the others have IoU 0),
-    then K3, the serial greedy walk, one warp per lane.
+    then `unidistill::nms_greedy_select`, kernel K3, the serial greedy
+    walk, one warp per lane.
 On CPU tensors they run the plain versions below, which repeat the kernels'
 arithmetic in PyTorch (`_clip_contrib_2d` of the JAX package term for term).
 `nms_bev` is the single-lane serial oracle and is plain only.
@@ -297,6 +299,50 @@ def nms_bev_batched_plain(boxes, valid, iou_threshold, post_max_size, cap=512):
     return greedy_select_plain(over, v, post_max_size)
 
 
+# ---------------------------------------------------------------------------
+# the custom ops: `nms_bev_batched` reaches K2 and K3 through these on both
+# devices (a CUDA tensor the kernel's wrapper, a CPU tensor its plain
+# version, each looked up by name at the call)
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("unidistill::rotated_iou_mask", mutates_args=(), device_types="cuda")
+def rotated_iou_mask_op(bev: torch.Tensor, valid: torch.Tensor, thr: float) -> torch.Tensor:
+    """K2 in mask mode (`rotated_iou_mask_cuda`): int64 words [L, C, C/64]."""
+    return rotated_iou_mask_cuda(bev, valid, thr)
+
+
+@rotated_iou_mask_op.register_kernel("cpu")
+def _rotated_iou_mask_cpu(bev, valid, thr):
+    return pack_mask_bits(iou_over_plain(bev, valid, thr))
+
+
+@rotated_iou_mask_op.register_fake
+def _rotated_iou_mask_fake(bev, valid, thr):
+    L, C = valid.shape
+    return bev.new_empty(L, C, C // _WORD, dtype=torch.int64)
+
+
+@torch.library.custom_op("unidistill::nms_greedy_select", mutates_args=(), device_types="cuda")
+def nms_greedy_select_op(words: torch.Tensor, valid: torch.Tensor,
+                         post_max_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 (`nms_greedy_select_cuda`): keep_idx [L, post] int32, keep_mask
+    [L, post] bool."""
+    return nms_greedy_select_cuda(words, valid, post_max_size)
+
+
+@nms_greedy_select_op.register_kernel("cpu")
+def _nms_greedy_select_cpu(words, valid, post_max_size):
+    return greedy_select_plain(unpack_mask_bits(words), valid, post_max_size)
+
+
+@nms_greedy_select_op.register_fake
+def _nms_greedy_select_fake(words, valid, post_max_size):
+    L = valid.shape[0]
+    return (valid.new_empty(L, post_max_size, dtype=torch.int32),
+            valid.new_empty(L, post_max_size, dtype=torch.bool))
+
+
 def nms_bev_batched(
     boxes: torch.Tensor,
     valid: torch.Tensor,
@@ -311,11 +357,9 @@ def nms_bev_batched(
     rows. Returns keep_idx [L, post_max_size] int32 (padded with the padded
     C) and keep_mask [L, post_max_size] bool.
     """
-    if not boxes.is_cuda:
-        return nms_bev_batched_plain(boxes, valid, iou_threshold, post_max_size, cap)
     bev, v = _candidate_lanes(boxes, valid, post_max_size, cap)
-    words = rotated_iou_mask_cuda(bev, v, iou_threshold)
-    return nms_greedy_select_cuda(words, v, post_max_size)
+    words = torch.ops.unidistill.rotated_iou_mask(bev, v, float(iou_threshold))
+    return torch.ops.unidistill.nms_greedy_select(words, v, post_max_size)
 
 
 def nms_bev(

@@ -33,11 +33,11 @@ tap) pair is read by at most one output: at stride 1 the offset fixes it,
 at stride s the output o = (i + p - k) / s per dimension. For a submanifold
 map nbr_t is nbr with its taps reversed.
 
-`sparse_conv(features, nbr, weight, bias, nbr_t=None)` launches kernel K4
-(`csrc/sparse_conv.cu`) for CUDA tensors and raises on any failure; when
-autograd needs its gradient it runs as `SparseConv`, whose backward is
-  dfeat = K4 over nbr_t with W[k]ᵀ (`sparse_conv_dgrad_cuda`),
-  dW[k] = Σ_o features[nbr[o, k]]ᵀ·g[o], kernel K6 (`sparse_conv_wgrad_cuda`),
+`sparse_conv(features, nbr, weight, bias, nbr_t=None)` calls the custom op
+`unidistill::sparse_conv`, which launches kernel K4 (`csrc/sparse_conv.cu`)
+for CUDA tensors and raises on any failure. Its registered backward is
+  dfeat = K4 over nbr_t with W[k]ᵀ (`unidistill::sparse_conv_dgrad`),
+  dW[k] = Σ_o features[nbr[o, k]]ᵀ·g[o], kernel K6 (`unidistill::sparse_conv_wgrad`),
   dbias = Σ_o g[o] (a plain reduction);
 the counterpart of the JAX custom VJP `_subm_bwd`. In bf16 (every model
 path) K4 and K6 multiply on the tensor cores. K6 there is a gathered GEMM
@@ -47,10 +47,13 @@ share its map and g rows in L2, the chunks (`k6_plan`, about K6_WAVES
 waves) added in order by a second kernel, so reruns are bit-identical.
 Like K4's tiles, it multiplies every row of a tile that has any neighbour
 at the tap, so at 64 and 128 channels its dense-tile mma work bounds it,
-at 16 and 32 channels its gathers and map reads. For CPU tensors it runs
-`sparse_conv_plain`, the same function in plain PyTorch, which autograd
-differentiates; `sparse_conv_dgrad_plain` and `sparse_conv_wgrad_plain` are
-the backward kernels' plain versions.
+at 16 and 32 channels its gathers and map reads. For CPU tensors the ops
+run `sparse_conv_plain`, the same function in plain PyTorch, and the
+backward kernels' plain versions `sparse_conv_dgrad_plain` and
+`sparse_conv_wgrad_plain`.
+
+The sites and maps are traceable by `torch.export`: no host read and no
+branch on a size, so the data-dependent site counts stay symbolic.
 """
 from __future__ import annotations
 
@@ -135,8 +138,8 @@ def from_voxels(voxel_feats: torch.Tensor, voxel_coords: torch.Tensor,
     keys = torch.where(_in_grid(zyx, spatial_shape), batch_key(b, zyx, spatial_shape),
                        torch.full_like(b, -1)).reshape(-1)
     keys, order = torch.sort(keys, stable=True)
-    n_pad = int((keys < 0).sum().item())
-    keys, order = keys[n_pad:], order[n_pad:]
+    live = torch.nonzero(keys >= 0).squeeze(1)  # the padding sorts first
+    keys, order = keys[live], order[live]
     coords = torch.cat([b.reshape(-1, 1), zyx.reshape(-1, 3)], 1)[order]
     return SparseTensor(voxel_feats.reshape(B * V, -1)[order], coords, keys,
                         tuple(spatial_shape), B)
@@ -162,10 +165,11 @@ def _neighbour_rows(st: SparseTensor, base: torch.Tensor, deltas: torch.Tensor) 
     """Row of `st` whose key is base + delta for every base key [M] and tap
     delta [K], -1 where no active site has it: [M, K] int32."""
     q = base[:, None] + deltas[None, :]
-    if st.keys.numel() == 0:
-        return torch.full(q.shape, -1, dtype=torch.int32, device=q.device)
-    idx = torch.searchsorted(st.keys, q).clamp_(max=st.keys.numel() - 1)
-    return torch.where(st.keys[idx] == q, idx, -1).to(torch.int32)
+    # a sentinel above every key ends the table: no query finds it, and an
+    # empty stage needs no branch
+    keys = torch.cat([st.keys, st.keys.new_full((1,), torch.iinfo(torch.int64).max)])
+    idx = torch.searchsorted(keys, q)
+    return torch.where(keys[idx] == q, idx, -1).to(torch.int32)
 
 
 def subm_rules(st: SparseTensor, kernel_size: int = 3) -> torch.Tensor:
@@ -435,41 +439,98 @@ def transpose_rules(nbr: torch.Tensor, n_in: int) -> torch.Tensor:
     return nbr_t[: n_in * K].reshape(n_in, K)
 
 
-class SparseConv(torch.autograd.Function):
-    """K4 forward; backward K4 over the transposed map (dfeat) and K6 (dW),
-    as the JAX custom VJP `_subm_bwd` (sparse_conv_pallas.py:279)."""
+# ---------------------------------------------------------------------------
+# the custom ops: the model path reaches the kernels through these on both
+# devices. A CUDA tensor reaches the kernel's wrapper, a CPU tensor its plain
+# version; each body looks its function up by name at the call, so a caller
+# that wraps a module-level wrapper (a recorder, a test) sees the op's calls.
+# ---------------------------------------------------------------------------
 
-    @staticmethod
-    def forward(ctx, features, nbr, weight, bias, nbr_t):
-        ctx.save_for_backward(features, nbr, weight, nbr_t)
-        ctx.bias_dtype = None if bias is None else bias.dtype
-        return sparse_conv_cuda(features, nbr, weight, bias)
 
-    @staticmethod
-    def backward(ctx, g):
-        features, nbr, weight, nbr_t = ctx.saved_tensors
-        g = g.to(features.dtype).contiguous()  # as JAX: g in the features' dtype
-        dfeat = dweight = dbias = None
-        if ctx.needs_input_grad[0]:
-            if nbr_t is None:
-                nbr_t = transpose_rules(nbr, features.shape[0])
-            dfeat = sparse_conv_dgrad_cuda(g, nbr_t, weight)
-        if ctx.needs_input_grad[2]:
-            dweight = sparse_conv_wgrad_cuda(features, g, nbr).to(weight.dtype)
-        if ctx.needs_input_grad[3]:
-            dbias = g.float().sum(0).to(ctx.bias_dtype)
-        return dfeat, None, dweight, dbias, None
+@torch.library.custom_op("unidistill::sparse_conv", mutates_args=(), device_types="cuda")
+def sparse_conv_op(features: torch.Tensor, nbr: torch.Tensor, weight: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None,
+                   nbr_t: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K4 (`sparse_conv_cuda`). `nbr_t`, the map's transpose, is read only
+    by the backward."""
+    return sparse_conv_cuda(features, nbr, weight, bias)
+
+
+@sparse_conv_op.register_kernel("cpu")
+def _sparse_conv_cpu(features, nbr, weight, bias=None, nbr_t=None):
+    return sparse_conv_plain(features, nbr, weight, bias)
+
+
+@sparse_conv_op.register_fake
+def _sparse_conv_fake(features, nbr, weight, bias=None, nbr_t=None):
+    return features.new_empty(nbr.shape[0], weight.shape[2])
+
+
+@torch.library.custom_op("unidistill::sparse_conv_dgrad", mutates_args=(), device_types="cuda")
+def sparse_conv_dgrad_op(g: torch.Tensor, nbr_t: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """K4 over the transposed map (`sparse_conv_dgrad_cuda`)."""
+    return sparse_conv_dgrad_cuda(g, nbr_t, weight)
+
+
+@sparse_conv_dgrad_op.register_kernel("cpu")
+def _sparse_conv_dgrad_cpu(g, nbr_t, weight):
+    return sparse_conv_dgrad_plain(g, nbr_t, weight)
+
+
+@sparse_conv_dgrad_op.register_fake
+def _sparse_conv_dgrad_fake(g, nbr_t, weight):
+    return g.new_empty(nbr_t.shape[0], weight.shape[1])
+
+
+@torch.library.custom_op("unidistill::sparse_conv_wgrad", mutates_args=(), device_types="cuda")
+def sparse_conv_wgrad_op(features: torch.Tensor, g: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
+    """K6 (`sparse_conv_wgrad_cuda`), float32 [K, Cin, Cout]."""
+    return sparse_conv_wgrad_cuda(features, g, nbr).contiguous()
+
+
+@sparse_conv_wgrad_op.register_kernel("cpu")
+def _sparse_conv_wgrad_cpu(features, g, nbr):
+    return sparse_conv_wgrad_plain(features, g, nbr)
+
+
+@sparse_conv_wgrad_op.register_fake
+def _sparse_conv_wgrad_fake(features, g, nbr):
+    return features.new_empty(nbr.shape[1], features.shape[1], g.shape[1], dtype=torch.float32)
+
+
+def _sparse_conv_setup(ctx, inputs, output):
+    features, nbr, weight, bias, nbr_t = inputs
+    ctx.save_for_backward(features, nbr, weight, nbr_t)
+    ctx.bias_dtype = None if bias is None else bias.dtype
+    # which of features, weight and bias want a gradient
+    ctx.wants = tuple(t is not None and t.requires_grad for t in (features, weight, bias))
+
+
+def _sparse_conv_backward(ctx, g):
+    """K4 over the transposed map (dfeat) and K6 (dW), as the JAX custom VJP
+    `_subm_bwd` (sparse_conv_pallas.py:279); dbias a plain reduction."""
+    features, nbr, weight, nbr_t = ctx.saved_tensors
+    g = g.to(features.dtype).contiguous()  # as JAX: g in the features' dtype
+    dfeat = dweight = dbias = None
+    if ctx.wants[0]:
+        if nbr_t is None:
+            nbr_t = transpose_rules(nbr, features.shape[0])
+        dfeat = torch.ops.unidistill.sparse_conv_dgrad(g, nbr_t, weight)
+    if ctx.wants[1]:
+        dweight = torch.ops.unidistill.sparse_conv_wgrad(features, g, nbr).to(weight.dtype)
+    if ctx.wants[2]:
+        dbias = g.float().sum(0).to(ctx.bias_dtype)
+    return dfeat, None, dweight, dbias, None
+
+
+sparse_conv_op.register_autograd(_sparse_conv_backward, setup_context=_sparse_conv_setup)
 
 
 def sparse_conv(features: torch.Tensor, nbr: torch.Tensor, weight: torch.Tensor,
                 bias: Optional[torch.Tensor] = None, nbr_t: Optional[torch.Tensor] = None) -> torch.Tensor:
     """out[i] = bias + Σ_k weight[k]ᵀ·features[nbr[i, k]] (missing taps add
-    nothing), summed in f32 and returned in the features' dtype. On the card
-    a call that autograd differentiates runs as `SparseConv`; `nbr_t`, the
-    transposed map (`transpose_rules(nbr, N_in)`), may be given so that convs
-    sharing a map share it too, else the backward builds it."""
-    if not features.is_cuda:
-        return sparse_conv_plain(features, nbr, weight, bias)
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (features, weight, bias)):
-        return SparseConv.apply(features, nbr, weight, bias, nbr_t)
-    return sparse_conv_cuda(features, nbr, weight, bias)
+    nothing), summed in f32 and returned in the features' dtype, through
+    `unidistill::sparse_conv`. `nbr_t`, the transposed map
+    (`transpose_rules(nbr, N_in)`), may be given so that convs sharing a map
+    share it too, else the backward builds it."""
+    return torch.ops.unidistill.sparse_conv(features, nbr, weight, bias, nbr_t)

@@ -19,6 +19,8 @@ step's fixed-size ROI dict: boxes [B, R, 9], scores [B, R], labels [B, R]
 (1-based), mask [B, R], as tensors on the detector's device.
 
 The detector runs on the card unless the caller passes device="cpu".
+`serving/export.py` writes the same eval step, with its weights, as a
+`torch.export` artifact that serves without this module.
 """
 from __future__ import annotations
 
