@@ -86,6 +86,36 @@ Phases, each printed on its own line:
   distill camera->lidar   the LiDAR student from the frozen camera teacher
            (K1 once, K4 21 + 20 dgrad, K6 21 a step)
   lidar train tiny        as train tiny, for a small LiDAR detector
+  swin predict    as predict, for the camera detector with the Swin-T image
+           backbone (`camera_exp()` with `SWIN_CAMERA_OVERRIDES` of
+           `configs.nuscenes`, as `--exp_options` sets them); K1, K2, K3
+           once a request (launches_per_request)
+  swin tiny       as tiny, for a small float32 Swin camera detector
+  swin train      as camera train, for the Swin camera detector (BatchNorms
+           tamed as `tame` does); K1 and K5 once a step
+  multisweep predict   as predict, for the ResNet camera detector on 2
+           sweeps (`nuscenes_batch(..., sweeps=2)`, weights of a 2-sweep
+           model): K1 twice a request, K2 and K3 once
+  multisweep key block   channel block 0 of the 2-sweep model_output
+           against a 1-sweep detector with the same camera encoder on the
+           key frame alone, within HEAD_REL_TOL_BF16 (bit_equal printed)
+  multisweep train     as camera train on 2 sweeps: K1 twice and K5 once a
+           step; then one more forward and backward with a gradient asked
+           of the images: the later sweep's must be 0, the key sweep's not
+  components scbottleneck, components pillar_vfe, components roiaware_pool3d
+           [cells|max|avg]   the leaf modules on the card against the CPU in
+           float32: `SCBottleneck` (planes 256, [4, 256, 180, 180], train
+           mode: output and running statistics), `PillarVFE` (train mode) on
+           the 0.075 x 0.075 x 8 m pillars of a 10-sweep `lidar_batch` frame
+           and `pointpillar_scatter` of its output (card = CPU bit for bit),
+           `roiaware_pool3d` (100 boxes on the frame's points, axis-aligned
+           and then rotated, 14 x 14 x 14 cells, the points' 5 values as
+           features) with gradients: first the (point, cell) pairs of both
+           devices (axis-aligned: equal; rotated: a pair that differs lies
+           within ROI_FACE_M of a cell's face, and its cells and their
+           points are left out below), then errors over max |ref| against
+           COMPONENT_REL_TOL and ROI_TOL (the max pool's output bit for
+           bit); the card's ms
   fusion predict  as predict, for the fusion detector (`fusion_exp().model`,
            both encoders): K1 once, K4 21 times, K2 and K3 once a request
   fusion train, distill fusion->lidar, distill fusion->camera   as distill
@@ -317,6 +347,29 @@ EXPORT_LOAD_TIMEOUT_S = 600
 EXPORT_TOL_OF_MAX = 1e-6
 # [launch path]: host calls timed a round
 LAUNCH_PATH_CALLS = 30
+# the multi-sweep phases: the key frame and one earlier sweep
+SWEEPS = 2
+# [components]: card vs CPU in float32 (TF32 off) as max |diff| over max
+# |ref|, outputs and running statistics: cuDNN's convolution algorithms and
+# the GEMMs round otherwise than the CPU's over a few layers (the tiny
+# detectors, ~80 layers, stay within 5e-3); the max pool and its gradient
+# route the same values (0); the avg pool sums with atomics on the card, in
+# no fixed order (float32 sums of at most a few thousand terms); a point in
+# several boxes sums its gradients from each in no fixed order, on either
+# device (7.8e-8 of the range seen on the H100 for the max pool, 7.6e-8
+# between two CPU runs)
+COMPONENT_REL_TOL = 1e-3
+ROI_TOL = {"max": (0.0, 1e-6), "avg": (1e-5, 1e-5)}  # (output, gradient)
+# pillars of 0.075 x 0.075 x 8 m (the LiDAR grid's cell, one cell high), at
+# most 20 points each; 100 ROI boxes of 14 x 14 x 14 cells
+PILLAR_SIZE = (0.075, 0.075, 8.0)
+PILLAR_MAX_POINTS = 20
+ROI_BOXES = 100
+ROI_CELLS = 14
+# a rotated box's point may change ROI cells on the card only within this
+# distance of a cell's face (float32 rounding of its coordinates in the
+# box frame is ~1e-6 m at 50 m; a cell is >= 0.107 m)
+ROI_FACE_M = 1e-4
 # the JAX package's eval-forward pins a frame (tests/test_flops.py), beside
 # the port's counts as a sanity note
 JAX_FLOPS_PINS = {"camera": 0.650e12, "lidar": 2.083e12, "fusion": 2.354e12}
@@ -1181,11 +1234,11 @@ def frozen_teacher(cfg, seed, batch, dev):
     return teacher
 
 
-def student_model(cfg, seed, dev):
+def student_model(cfg, seed, dev, sweeps=1):
     from unidistill_torch.models.bevfusion import BEVFusionCenterHead
     from unidistill_torch.serving.synthetic import random_state_dict
-    model = BEVFusionCenterHead(cfg)
-    model.load_state_dict(random_state_dict(cfg, seed=seed))
+    model = BEVFusionCenterHead(cfg, sweeps)
+    model.load_state_dict(random_state_dict(cfg, seed=seed, sweeps=sweeps))
     return model.to(dev)
 
 
@@ -1305,6 +1358,258 @@ def fusion_phases(dev) -> None:
         check_frozen(phase, teacher)
         del student, opt, state
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the Swin-T camera backbone, multi-sweep camera input, the leaf modules
+# ---------------------------------------------------------------------------
+
+def per_unit(launches, n):
+    return json.dumps({k: v / n for k, v in sorted(launches.items())})
+
+
+def swin_multisweep_phases(dev, batch_np) -> None:
+    """The Swin camera detector and the 2-sweep ResNet camera detector,
+    served and trained at full width (batch 4, seeded weights, BatchNorm
+    calibrated for serving, tamed for training); `batch_np` gives the
+    training frames' images, matrices and GT boxes."""
+    from unidistill_torch.configs.nuscenes import (
+        SWIN_CAMERA_OVERRIDES, ExpConfig, apply_overrides, camera_exp, tiny_model)
+    from unidistill_torch.kernels import build
+    from unidistill_torch.layers import lss
+    from unidistill_torch.serving.predictor import Detector
+    from unidistill_torch.serving.synthetic import (
+        calibrate_batchnorm, nuscenes_batch, random_state_dict, small_batch)
+    from unidistill_torch.training import steps
+    from unidistill_torch.training.train_state import TrainState, make_optimizer
+
+    # ---- swin predict, swin tiny, swin train ---------------------------------
+    exp = apply_overrides(camera_exp(), SWIN_CAMERA_OVERRIDES)
+    cfg = exp.model
+    det = Detector(cfg, random_state_dict(cfg, seed=0), device="cuda")
+    request = to_device(nuscenes_batch(cfg, BATCH, seed=1), dev)
+    calibrate_batchnorm(det.model, steps.model_inputs(request, cfg, dev, training=False))
+    serve("swin predict", det, cfg, request, [],
+          dict(bev_pool_fwd=TIMED_REQUESTS, rotated_iou_mask=TIMED_REQUESTS, nms_greedy_select=TIMED_REQUESTS))
+    log("swin predict", launches_per_request=per_unit(build.LAUNCHES, TIMED_REQUESTS))
+    del det, request
+    torch.cuda.empty_cache()
+
+    tcfg = dataclasses.replace(
+        apply_overrides(ExpConfig(model=tiny_model(with_lidar=False)), SWIN_CAMERA_OVERRIDES).model,
+        compute_dtype="float32")
+    tbatch = small_batch(tcfg, 2, seed=3)
+    det_cpu = Detector(tcfg, random_state_dict(tcfg, seed=2), device="cpu")
+    calibrate_batchnorm(det_cpu.model, steps.model_inputs(tbatch, tcfg, "cpu", training=False))
+    det_gpu = Detector(tcfg, det_cpu.model.state_dict(), device="cuda")
+    with Recorder(lss, "bev_pool_outer") as rec_g, torch.no_grad():
+        hg = det_gpu.model(**steps.model_inputs(tbatch, tcfg, dev, training=False))
+    with Recorder(lss, "bev_pool_outer") as rec_c, torch.no_grad():
+        hc = det_cpu.model(**steps.model_inputs(tbatch, tcfg, "cpu", training=False))
+    moved = int((rec_g.calls[0][0][0].cpu() != rec_c.calls[0][0][0]).any(-1).sum().item())
+    if moved:
+        raise RuntimeError(f"swin tiny: {moved} frustum points fall in other cells on the card")
+    card_vs_cpu("swin tiny", tcfg, hg, hc)
+    del det_cpu, det_gpu, hg, hc
+
+    batch = to_device({k: batch_np[k] for k in ("imgs", "mats", "gt_boxes")}, dev)
+    model = student_model(cfg, 0, dev)
+    tame(model)
+    opt = make_optimizer(model, exp.train)
+    state = TrainState()
+    launches = train_run("swin train", lambda: steps.train_step(state, batch, model, opt, cfg), model,
+                         dict(bev_pool_fwd=1, bev_pool_bwd=1))
+    log("swin train", launches_per_step=per_unit(launches, TIMED_STEPS))
+    del model, opt, state, batch
+    torch.cuda.empty_cache()
+
+    # ---- multisweep predict: 2 sweeps, ResNet-50 -----------------------------
+    exp = camera_exp()
+    cfg = exp.model
+    det = Detector(cfg, random_state_dict(cfg, seed=0, sweeps=SWEEPS), device="cuda")
+    request = to_device(nuscenes_batch(cfg, BATCH, seed=1, sweeps=SWEEPS), dev)
+    kw = steps.model_inputs(request, cfg, dev, training=False)
+    calibrate_batchnorm(det.model, kw)
+    serve("multisweep predict", det, cfg, request, [],
+          dict(bev_pool_fwd=SWEEPS * TIMED_REQUESTS, rotated_iou_mask=TIMED_REQUESTS,
+               nms_greedy_select=TIMED_REQUESTS))
+    log("multisweep predict", sweeps=SWEEPS, launches_per_request=per_unit(build.LAUNCHES, TIMED_REQUESTS))
+    # channel block 0 against a one-sweep detector with the same camera
+    # encoder (the weights and the statistics calibrated on both sweeps) on
+    # the key frame alone
+    sd1 = random_state_dict(cfg, seed=0)
+    sd1.update({k: v for k, v in det.model.state_dict().items() if k.startswith("camera_encoder.")})
+    det1 = Detector(cfg, sd1, device="cuda")
+    key = {"imgs": kw["imgs"][:, 0], "mats": {k: (v if k == "bda_mat" else v[:, 0]) for k, v in kw["mats"].items()}}
+    with torch.no_grad():
+        both = det.model(**kw)["model_output"]
+        alone = det1.model(**key)["model_output"]
+    C = alone.shape[1]
+    if both.shape[1] != SWEEPS * C:
+        raise RuntimeError(f"multisweep: model_output has {both.shape[1]} channels, expected {SWEEPS * C}")
+    err = (both[:, :C] - alone).abs().max().item() / alone.abs().max().clamp_min(1e-6).item()
+    log("multisweep key block", channels=f"{both.shape[1]}={SWEEPS}x{C}", err_over_range=f"{err:.3e}",
+        tol=HEAD_REL_TOL_BF16, bit_equal=torch.equal(both[:, :C], alone),
+        other_block_differs=not torch.equal(both[:, C:], both[:, :C]))
+    if err > HEAD_REL_TOL_BF16:
+        raise RuntimeError(f"multisweep: channel block 0 differs from the key frame's own by {err:.3e}")
+    del det, det1, request, kw, key, both, alone
+    torch.cuda.empty_cache()
+
+    # ---- multisweep train ------------------------------------------------------
+    frames = nuscenes_batch(cfg, BATCH, seed=21, sweeps=SWEEPS)
+    batch = to_device(dict(frames, gt_boxes=batch_np["gt_boxes"]), dev)
+    model = student_model(cfg, 0, dev, sweeps=SWEEPS)
+    opt = make_optimizer(model, exp.train)
+    state = TrainState()
+    launches = train_run("multisweep train", lambda: steps.train_step(state, batch, model, opt, cfg), model,
+                         dict(bev_pool_fwd=SWEEPS, bev_pool_bwd=1))
+    log("multisweep train", sweeps=SWEEPS, launches_per_step=per_unit(launches, TIMED_STEPS))
+    # a gradient asked of the images: the key sweep's only
+    kw = steps.model_inputs(batch, cfg, dev, training=True)
+    kw["imgs"].requires_grad_(True)
+    model(**kw)["model_output"].square().mean().backward()
+    g = kw["imgs"].grad
+    key_g, other_g = g[:, 0].abs().max().item(), g[:, 1:].abs().max().item()
+    log("multisweep train", image_grad_key_max=f"{key_g:.3e}", image_grad_other_max=f"{other_g:.3e}")
+    if not (key_g > 0 and other_g == 0):
+        raise RuntimeError(f"multisweep train: image gradients key {key_g:.3e}, later sweeps {other_g:.3e}")
+    del model, opt, state, batch, kw, g
+    torch.cuda.empty_cache()
+
+
+def components_phase(dev) -> None:
+    """The leaf modules on the card against the same calls on the CPU, float32
+    (TF32 off): `SCBottleneck` (planes 256, train mode: output and running
+    statistics), `PillarVFE` + `pointpillar_scatter` on a 10-sweep LiDAR
+    frame's pillars, `roiaware_pool3d` max and avg with gradients (100 boxes
+    on the frame's points, axis-aligned and rotated, 14 x 14 x 14 cells)."""
+    from unidistill_torch.configs.nuscenes import lidar_exp
+    from unidistill_torch.layers.pillar_vfe import PillarVFE, pointpillar_scatter
+    from unidistill_torch.layers.sc_conv import SCBottleneck
+    from unidistill_torch.ops.roiaware_pool import roi_point_cells, roiaware_pool3d
+    from unidistill_torch.serving.synthetic import lidar_batch, pillars
+
+    def rel(got, ref):
+        return (got.cpu().float() - ref.float()).abs().max().item() / ref.abs().max().clamp_min(1e-6).item()
+
+    def both(make, args, train=True):
+        """make() built once, copied to the card; the module's outputs on
+        both devices, its state dicts after."""
+        torch.manual_seed(0)
+        cpu = make().train(train)
+        card = make().train(train)
+        card.load_state_dict(cpu.state_dict())
+        card.to(dev)
+        args_g = [a.to(dev) for a in args]
+        with torch.no_grad():
+            out_c = cpu(*args)
+            out_g = card(*args_g)
+            sd_c = {k: v.clone() for k, v in cpu.state_dict().items()}
+            sd_g = {k: v.clone() for k, v in card.state_dict().items()}
+            ms = cuda_ms(lambda: card(*args_g), iters=3, warmup=1)
+        return out_c, out_g, sd_c, sd_g, ms
+
+    def stats_rel(sd_c, sd_g):
+        return max(rel(sd_g[k], v) for k, v in sd_c.items() if k.startswith("running") or ".running" in k)
+
+    # ---- SCBottleneck --------------------------------------------------------
+    x = torch.randn(BATCH, 256, 180, 180, generator=torch.Generator().manual_seed(0))
+    out_c, out_g, sd_c, sd_g, ms = both(lambda: SCBottleneck(256, 256), (x,))
+    e_out, e_stats = rel(out_g, out_c), stats_rel(sd_c, sd_g)
+    log("components scbottleneck", shape=list(x.shape), err_over_range=f"{e_out:.3e}",
+        stats_err=f"{e_stats:.3e}", tol=COMPONENT_REL_TOL, card_ms=f"{ms:.3f}")
+    if max(e_out, e_stats) > COMPONENT_REL_TOL:
+        raise RuntimeError(f"SCBottleneck: card vs CPU {e_out:.3e} (statistics {e_stats:.3e})")
+
+    # ---- PillarVFE + pointpillar_scatter ------------------------------------
+    lcfg = lidar_exp().model
+    frame = lidar_batch(lcfg, 1, seed=5)
+    pts, mask = frame["points"][0], frame["points_mask"][0]
+    feats, coords, npts = (torch.from_numpy(a) for a in pillars(
+        pts, mask, PILLAR_SIZE, lcfg.point_cloud_range, PILLAR_MAX_POINTS))
+    grid = tuple(int(round((lcfg.point_cloud_range[i + 3] - lcfg.point_cloud_range[i]) / PILLAR_SIZE[i]))
+                 for i in range(3))
+    out_c, out_g, sd_c, sd_g, ms = both(
+        lambda: PillarVFE(5, voxel_size=PILLAR_SIZE, point_cloud_range=lcfg.point_cloud_range),
+        (feats, coords, npts))
+    e_out, e_stats = rel(out_g, out_c), stats_rel(sd_c, sd_g)
+    valid = npts > 0
+    canvas_g = pointpillar_scatter(out_g, coords.to(dev), valid.to(dev), grid)
+    canvas_c = pointpillar_scatter(out_g.cpu(), coords, valid, grid)
+    exact = torch.equal(canvas_g.cpu(), canvas_c)
+    log("components pillar_vfe", points=int(mask.sum()), pillars=len(npts), grid=list(grid),
+        max_points=PILLAR_MAX_POINTS, err_over_range=f"{e_out:.3e}", stats_err=f"{e_stats:.3e}",
+        tol=COMPONENT_REL_TOL, scatter_exact=exact, card_ms=f"{ms:.3f}")
+    if max(e_out, e_stats) > COMPONENT_REL_TOL or not exact:
+        raise RuntimeError(f"PillarVFE: card vs CPU {e_out:.3e} (statistics {e_stats:.3e}), scatter exact {exact}")
+
+    # ---- roiaware_pool3d -----------------------------------------------------
+    rng = np.random.RandomState(6)
+    xyz = torch.from_numpy(pts[mask][:, :3].copy())
+    feat = torch.from_numpy(pts[mask].copy())  # x, y, z, intensity, dt
+    centres = pts[mask][rng.choice(int(mask.sum()), ROI_BOXES, replace=False), :3]
+    sizes = np.concatenate([rng.uniform(2.0, 6.0, (ROI_BOXES, 2)), rng.uniform(1.5, 3.0, (ROI_BOXES, 1))], 1)
+    headings = rng.uniform(-np.pi, np.pi, (ROI_BOXES, 1))
+    cot = torch.randn(ROI_BOXES, *(ROI_CELLS,) * 3, feat.shape[1], generator=torch.Generator().manual_seed(7))
+    n_cells = ROI_BOXES * ROI_CELLS ** 3
+    for boxes, heading in (("axis-aligned", np.zeros_like(headings)), ("rotated", headings)):
+        rois = torch.from_numpy(np.concatenate([centres, sizes, heading], 1).astype(np.float32))
+        # the (point, cell) pairs on each device; a rotated box's sin, cos
+        # and fused multiply-adds round otherwise on the card, so a point
+        # within rounding of a cell's face may change cells there: each such
+        # pair must lie within ROI_FACE_M of a face (float64), and its
+        # cells and their points are left out of the comparison
+        keys = {}
+        for label, d in (("cpu", torch.device("cpu")), ("card", dev)):
+            _, pt, cell = roi_point_cells(rois.to(d), xyz.to(d), (ROI_CELLS,) * 3)
+            keys[label] = pt.cpu() * n_cells + cell.cpu()
+        kc, kg = keys["cpu"], keys["card"]
+        moved = torch.cat([kc[~torch.isin(kc, kg)], kg[~torch.isin(kg, kc)]])
+        m_pt, m_cell = moved // n_cells, moved % n_cells
+        face_m = roi_face_distance(rois, xyz, m_pt, m_cell).max().item() if len(moved) else 0.0
+        hit = torch.cat([k[torch.isin(k % n_cells, m_cell)] for k in (kc, kg)])
+        cell_ok = torch.ones(n_cells, dtype=torch.bool)
+        cell_ok[m_cell] = False
+        pt_ok = torch.ones(xyz.shape[0], dtype=torch.bool)
+        pt_ok[hit // n_cells] = False
+        log(f"components roiaware_pool3d {boxes} cells", pairs=len(kc), moved_pairs=len(moved),
+            cells_left_out=int((~cell_ok).sum()), points_left_out=int((~pt_ok).sum()),
+            moved_max_face_distance_m=f"{face_m:.3e}", face_tol_m=ROI_FACE_M)
+        if (boxes == "axis-aligned" and len(moved)) or face_m > ROI_FACE_M:
+            raise RuntimeError(f"roiaware_pool3d {boxes}: {len(moved)} (point, cell) pairs differ on the "
+                               f"card, up to {face_m:.3e} m from a face")
+        for method, (tol, grad_tol) in ROI_TOL.items():
+            res = {}
+            for label, d in (("cpu", torch.device("cpu")), ("card", dev)):
+                f = feat.to(d, copy=True).requires_grad_(True)
+                out = roiaware_pool3d(rois.to(d), xyz.to(d), f, ROI_CELLS, method)
+                (out * cot.to(d)).sum().backward()
+                res[label] = out.detach().cpu().reshape(n_cells, -1), f.grad.cpu()
+            ms = cuda_ms(lambda: roiaware_pool3d(rois.to(dev), xyz.to(dev), feat.to(dev), ROI_CELLS, method),
+                         iters=3, warmup=1)
+            (o_c, g_c), (o_g, g_g) = res["cpu"], res["card"]
+            e_out, e_grad = rel(o_g[cell_ok], o_c[cell_ok]), rel(g_g[pt_ok], g_c[pt_ok])
+            filled = int((o_c.abs().sum(-1) > 0).sum())
+            log(f"components roiaware_pool3d {method}", boxes=boxes, rois=ROI_BOXES, points=xyz.shape[0],
+                cells=n_cells, filled_cells=filled, err_over_range=f"{e_out:.3e}",
+                grad_err_over_range=f"{e_grad:.3e}", tol=tol, grad_tol=grad_tol, card_ms=f"{ms:.3f}")
+            if e_out > tol or e_grad > grad_tol or filled == 0:
+                raise RuntimeError(f"roiaware_pool3d {method} ({boxes}): card vs CPU {e_out:.3e} "
+                                   f"(gradient {e_grad:.3e})")
+
+
+def roi_face_distance(rois, xyz, pt, cell):
+    """Distance in metres (float64) from each point `pt` to the nearest
+    face of the ROI cells grid it was binned into (`cell` a flat index of
+    `roi_point_cells`)."""
+    r, p = rois.double()[cell // ROI_CELLS ** 3], xyz.double()[pt]
+    px, py, pz = (p[:, i] - r[:, i] for i in range(3))
+    c, s = torch.cos(-r[:, 6]), torch.sin(-r[:, 6])
+    local = torch.stack([px * c - py * s, px * s + py * c, pz], 1)
+    size = r[:, 3:6] / ROI_CELLS
+    u = (local + r[:, 3:6] / 2) / size
+    return ((u - u.round()).abs() * size).min(1).values
 
 
 # ---------------------------------------------------------------------------
@@ -2305,6 +2610,10 @@ def main() -> int:
     distill_inputs = train_phases(dev, table)
     torch.cuda.empty_cache()
     lidar_train_phases(dev, table)
+    torch.cuda.empty_cache()
+    swin_multisweep_phases(dev, distill_inputs[0])
+    torch.cuda.empty_cache()
+    components_phase(dev)
     torch.cuda.empty_cache()
     fusion_phases(dev)
     torch.cuda.empty_cache()

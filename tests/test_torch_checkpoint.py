@@ -211,9 +211,3 @@ def test_reference_state_dict_import_matches_jax(name, tmp_path):
             assert torch.equal(v, want[k]), k
 
 
-def test_swin_backbone_is_not_ported():
-    cfg = tiny_model()
-    cfg = dataclasses.replace(cfg, camera_encoder=dataclasses.replace(cfg.camera_encoder, img_backbone="swin"))
-    with pytest.raises(NotImplementedError):
-        convert_state_dict({"camera_encoder.backbone.img_backbone.patch_embed.projection.weight":
-                            torch.zeros(1)}, cfg)

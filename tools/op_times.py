@@ -5,9 +5,10 @@ once for each tree, in the order parent, change, change, parent.
     python tools/op_times.py cells OUT.pt
     python tools/op_times.py k5 TREE CELLS.pt
     python tools/op_times.py voxelize TREE
-    python tools/op_times.py predict TREE camera|lidar|fusion
-    python tools/op_times.py step TREE distill|lidar
+    python tools/op_times.py predict TREE camera|lidar|fusion|swin|sweeps2
+    python tools/op_times.py step TREE distill|lidar|camera|swin|sweeps2
     python tools/op_times.py bn TREE camera|lidar|fusion [ROUNDS]
+    python tools/op_times.py sweeps TREE [ROUNDS]
     python tools/op_times.py nms_cells OUT.pt
     python tools/op_times.py nms TREE NMS_CELLS.pt
     python tools/op_times.py band_cells OUT.pt
@@ -36,7 +37,12 @@ the host clock, the mean of 20 calls. `predict` serves TREE's camera, LiDAR or
 fusion detector (`camera_exp()` / `lidar_exp()` / `fusion_exp()`, full width, seeded random
 weights, BatchNorm calibrated on the batch) on `train_batch(cfg, cfg, 4,
 seed=21)`: two warm-up requests, then 20 timed by the host clock around
-work that ends in a synchronise, as `chip_smoke.py` times a request.
+work that ends in a synchronise, as `chip_smoke.py` times a request;
+`swin` is the camera detector with the Swin-T backbone
+(`configs.nuscenes.SWIN_CAMERA_OVERRIDES`), `sweeps2` the camera detector
+on two sweeps (`nuscenes_batch(..., sweeps=2)`, weights of a 2-sweep
+model); each prints its peak memory too, and the device ms of a request
+(all its kernels, torch.profiler over 3 requests after the timed ones).
 `step` trains with TREE's camera<-LiDAR `distill_train_step` (`distill`:
 the camera student, seed 0, from the LiDAR teacher, seed 10, BatchNorm
 calibrated) or the LiDAR detector's `train_step` (`lidar`, seed 30) on
@@ -50,8 +56,19 @@ forms by turns (ROUNDS rounds, default 8, in the order A B B A ...):
 `predict` times them. It prints each round's median, the median of each
 form's round medians, the device ms a request of each form's BatchNorm
 kernels and of all its kernels (torch.profiler, 3 requests), and the max
-|difference| of the two forms' boxes and scores. Each prints one JSON line
-per measurement, after the card's name and power limit.
+|difference| of the two forms' boxes and scores. `sweeps` serves TREE's
+camera detector, one sweep and two, in one process with two setups each:
+"op_times", `predict`'s (weights of seed 40, `_frames`), and "smoke",
+`chip_smoke.py` [predict] / [multisweep predict]'s (weights of seed 0,
+`nuscenes_batch(cfg, 4, seed=1)`), BatchNorm calibrated on each one's
+frames; ROUNDS rounds (default 2) of the four in order and then in
+reverse, each 20 requests timed as `predict` times them; then each one's
+round medians, its device ms a request (all kernels and K1's,
+torch.profiler, 3 requests), the boxes it keeps and its peak memory; then
+a 2-sweep train step of each setup (the smoke's: seed 0, untamed, frames
+`nuscenes_batch(cfg, 4, seed=21, sweeps=2)`, as [multisweep train]), each
+of 8 steps' ms in run order. Each prints one JSON line per measurement,
+after the card's name and power limit.
 
 `nms_cells` writes, with this tree, four sets of NMS lanes (24 lanes x 512
 rows, threshold 0.1, post 100): the lanes that `Detector.predict` hands to
@@ -212,22 +229,44 @@ def voxelize(tree):
                           wall_ms=round(wall_ms, 4))), flush=True)
 
 
+def _exp(modality):
+    """The experiment of a `predict` / `step` modality and its camera
+    sweeps."""
+    from unidistill_torch.configs import nuscenes as c
+    if modality == "swin":
+        return c.apply_overrides(c.camera_exp(), c.SWIN_CAMERA_OVERRIDES), 1
+    exps = {"camera": c.camera_exp, "sweeps2": c.camera_exp, "lidar": c.lidar_exp, "fusion": c.fusion_exp}
+    return exps[modality](), 2 if modality == "sweeps2" else 1
+
+
+def _frames(cfg, sweeps, dev):
+    """`train_batch(cfg, cfg, B, SEED)` on the card, with S-sweep camera
+    frames (`nuscenes_batch`) where sweeps > 1."""
+    from unidistill_torch.serving.synthetic import nuscenes_batch, train_batch
+    batch = train_batch(cfg, cfg, B, seed=SEED)
+    if sweeps > 1:
+        batch.update(nuscenes_batch(cfg, B, seed=SEED, sweeps=sweeps))
+
+    def to_device(b):
+        return {k: to_device(v) if isinstance(v, dict) else torch.from_numpy(v).to(dev) for k, v in b.items()}
+    return to_device(batch)
+
+
 def predict(tree, modality):
     sys.path.insert(0, tree)
-    from unidistill_torch.configs.nuscenes import camera_exp, fusion_exp, lidar_exp
     from unidistill_torch.serving.predictor import Detector
-    from unidistill_torch.serving.synthetic import calibrate_batchnorm, random_state_dict, train_batch
+    from unidistill_torch.serving.synthetic import calibrate_batchnorm, random_state_dict
     from unidistill_torch.training.steps import model_inputs
-    cfg = {"camera": camera_exp, "lidar": lidar_exp, "fusion": fusion_exp}[modality]().model
+    exp, sweeps = _exp(modality)
+    cfg = exp.model
     dev = torch.device("cuda")
-
-    def to_device(batch):
-        return {k: to_device(v) if isinstance(v, dict) else torch.from_numpy(v).to(dev) for k, v in batch.items()}
-    batch = to_device(train_batch(cfg, cfg, B, seed=SEED))
-    det = Detector(cfg, random_state_dict(cfg, seed=40), device="cuda")
+    batch = _frames(cfg, sweeps, dev)
+    kw = {"sweeps": sweeps} if sweeps > 1 else {}  # a tree before multi-sweep input has no such argument
+    det = Detector(cfg, random_state_dict(cfg, seed=40, **kw), device="cuda")
     calibrate_batchnorm(det.model, model_inputs(batch, cfg, dev, training=False))
     keys = (("points", "points_mask") if cfg.with_lidar else ()) + (("imgs", "mats") if cfg.with_camera else ())
     request = {k: batch[k] for k in keys}
+    torch.cuda.reset_peak_memory_stats()
     lat = []
     for i in range(22):
         t0 = time.perf_counter()
@@ -236,9 +275,13 @@ def predict(tree, modality):
         if i >= 2:
             lat.append((time.perf_counter() - t0) * 1e3)
     lat.sort()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    device = _timing._per_call(_timing._profiled(lambda: det.predict(request), None, 3), 3)[0]
     print(json.dumps(dict(tree=tree, op=f"{modality} predict", requests=len(lat),
                           mean_ms=round(sum(lat) / len(lat), 3), median_ms=round(lat[len(lat) // 2], 3),
-                          min_ms=round(lat[0], 3), max_ms=round(lat[-1], 3))), flush=True)
+                          min_ms=round(lat[0], 3), max_ms=round(lat[-1], 3), device_ms=round(device, 4),
+                          peak_mem_gib=round(peak, 3), card=_card())),
+          flush=True)
 
 
 def _bn_kernel(name):
@@ -336,19 +379,110 @@ def step(tree, which):
         opt = make_optimizer(student, distill_exp("lidar", "camera").train)
         fn = lambda: steps.distill_train_step(state, batch, student, teacher, opt, s_cfg, t_cfg,
                                               DISTILL_VARIANTS[("lidar", "camera")])
-    else:
+    elif which == "lidar":
         student = model(t_cfg, 30)
         opt = make_optimizer(student, lidar_exp().train)
         fn = lambda: steps.train_step(state, batch, student, opt, t_cfg)
-    ts = []
+    else:  # a camera detector's own step, its BatchNorms tamed by TREE's chip_smoke.py
+        from chip_smoke import tame
+        exp, sweeps = _exp(which)
+        cfg = exp.model
+        frames = _frames(cfg, sweeps, dev)
+        kw = {"sweeps": sweeps} if sweeps > 1 else {}  # a tree before multi-sweep input has no such argument
+        student = BEVFusionCenterHead(cfg, **kw)
+        student.load_state_dict(random_state_dict(cfg, seed=0, **kw))
+        tame(student)
+        student.to(dev)
+        opt = make_optimizer(student, exp.train)
+        fn = lambda: steps.train_step(state, frames, student, opt, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    run = []
     for i in range(12):
         t0 = time.perf_counter()
         steps.metrics_to_host(fn())
-        if i >= 2:
-            ts.append((time.perf_counter() - t0) * 1e3)
-    ts.sort()
+        run.append((time.perf_counter() - t0) * 1e3)
+    ts = sorted(run[2:])
     print(json.dumps(dict(tree=tree, op=f"{which} step", steps=len(ts), median_ms=round((ts[4] + ts[5]) / 2, 3),
-                          min_ms=round(ts[0], 3), max_ms=round(ts[-1], 3))), flush=True)
+                          min_ms=round(ts[0], 3), max_ms=round(ts[-1], 3), run_ms=[round(t, 3) for t in run],
+                          peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3), card=_card())),
+          flush=True)
+
+
+
+def sweeps_compare(tree, rounds="2"):
+    sys.path.insert(0, tree)
+    from chip_smoke import to_device
+    from unidistill_torch.configs.nuscenes import camera_exp
+    from unidistill_torch.models.bevfusion import BEVFusionCenterHead
+    from unidistill_torch.serving.predictor import Detector
+    from unidistill_torch.serving.synthetic import (
+        calibrate_batchnorm, nuscenes_batch, random_state_dict, train_batch)
+    from unidistill_torch.training import steps
+    from unidistill_torch.training.train_state import TrainState, make_optimizer
+    exp = camera_exp()
+    cfg = exp.model
+    dev = torch.device("cuda")
+
+    def served(s, seed, frames):
+        det = Detector(cfg, random_state_dict(cfg, seed=seed, sweeps=s), device="cuda")
+        calibrate_batchnorm(det.model, steps.model_inputs(frames, cfg, dev, training=False))
+        return det, {k: frames[k] for k in ("imgs", "mats")}
+    forms = {}
+    for s in (1, 2):
+        forms[f"op_times {s}"] = served(s, 40, _frames(cfg, s, dev))
+        forms[f"smoke {s}"] = served(s, 0, to_device(nuscenes_batch(cfg, B, seed=1, sweeps=s), dev))
+
+    def timed(det, request):
+        lat = []
+        for i in range(22):
+            t0 = time.perf_counter()
+            det.predict(request)
+            torch.cuda.synchronize()
+            if i >= 2:
+                lat.append((time.perf_counter() - t0) * 1e3)
+        lat.sort()
+        return lat[len(lat) // 2]
+    medians = {f: [] for f in forms}
+    for r in range(int(rounds)):
+        for form in list(forms)[::1 if r % 2 == 0 else -1] + list(forms)[::-1 if r % 2 == 0 else 1]:
+            medians[form].append(timed(*forms[form]))
+            print(json.dumps(dict(tree=tree, op="sweeps round", round=r, form=form,
+                                  median_ms=round(medians[form][-1], 3))), flush=True)
+    for form, (det, request) in forms.items():
+        torch.cuda.reset_peak_memory_stats()
+        kept = det.predict(request)["mask"].sum(1).tolist()
+        records = _timing._profiled(lambda: det.predict(request), None, 3)
+        k1 = {k: v for k, v in records.items() if "bev_pool" in k}
+        m = sorted(medians[form])
+        print(json.dumps(dict(tree=tree, op="sweeps predict", form=form, round_medians_ms=[round(x, 3) for x in m],
+                              median_of_rounds_ms=round((m[(len(m) - 1) // 2] + m[len(m) // 2]) / 2, 3),
+                              all_device_ms=round(_timing._per_call(records, 3)[0], 4),
+                              k1_device_ms=round(_timing._per_call(k1, 3)[0], 4), kept_boxes=kept,
+                              peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3), card=_card())),
+              flush=True)
+    del forms
+    torch.cuda.empty_cache()
+    gt = train_batch(cfg, cfg, B, seed=SEED)["gt_boxes"]
+    for form in ("op_times", "smoke"):
+        if form == "op_times":
+            frames, seed = _frames(cfg, 2, dev), 40
+        else:
+            frames = to_device(dict(nuscenes_batch(cfg, B, seed=SEED, sweeps=2), gt_boxes=gt), dev)
+            seed = 0
+        model = BEVFusionCenterHead(cfg, 2)
+        model.load_state_dict(random_state_dict(cfg, seed=seed, sweeps=2))
+        model.to(dev)
+        opt = make_optimizer(model, exp.train)
+        state = TrainState()
+        run = []
+        for _ in range(8):
+            t0 = time.perf_counter()
+            steps.metrics_to_host(steps.train_step(state, frames, model, opt, cfg))
+            run.append((time.perf_counter() - t0) * 1e3)
+        print(json.dumps(dict(tree=tree, op="sweeps step", form=form, run_ms=[round(t, 3) for t in run],
+                              card=_card())), flush=True)
+        del model, opt, state, frames
+        torch.cuda.empty_cache()
 
 
 def nms_cells(out):
@@ -554,5 +688,5 @@ if __name__ == "__main__":
     if not torch.cuda.is_available():
         sys.exit("op_times: needs a CUDA device")
     print(_card(), flush=True)
-    {"cells": cells, "k5": k5, "voxelize": voxelize, "predict": predict, "step": step, "bn": bn, "nms_cells": nms_cells,
+    {"cells": cells, "k5": k5, "voxelize": voxelize, "predict": predict, "step": step, "bn": bn, "sweeps": sweeps_compare, "nms_cells": nms_cells,
      "nms": nms, "band_cells": band_cells, "band": band, "k10": k10, "k8": k8, "k7": k7}[sys.argv[1]](*sys.argv[2:])

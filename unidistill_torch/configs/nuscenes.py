@@ -306,6 +306,19 @@ def lidar_exp() -> ExpConfig:
     )
 
 
+# `--exp_options` that select the reference's Swin-T camera variant
+# (megvii-research/CVPR2023-UniDistill, base_nuscenes_cfg.py:137-157: embed
+# 96, depths (2, 2, 6, 2), heads (3, 6, 12, 24), window 7, out_indices
+# (1, 2, 3)): Swin-T's stages 1-3 (192, 384, 768 wide, strides 8, 16, 32)
+# brought to the camera feature stride 16
+SWIN_CAMERA_OVERRIDES = {
+    "model.camera_encoder.img_backbone": "swin",
+    "model.camera_encoder.img_neck_in_channels": (192, 384, 768),
+    "model.camera_encoder.img_neck_upsample_strides": (0.5, 1, 2),
+    "model.camera_encoder.img_neck_out_channels": (128, 128, 128),
+}
+
+
 def camera_exp() -> ExpConfig:
     """The camera-only CenterHead experiment (no LiDAR encoder; lr 2e-4)."""
     return ExpConfig(

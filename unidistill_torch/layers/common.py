@@ -1,9 +1,11 @@
 """Building blocks shared by the port's layers, with the JAX modules' numerics.
 
-  * `Conv2d`, `ConvTranspose2d`: parameters held in float32 (flax's default
-    `param_dtype`); the input, the weight and the bias are cast to the
-    module's `compute_dtype` at the call, as flax's `dtype` does. The model
-    sets `compute_dtype` from `ModelConfig.compute_dtype`.
+  * `Conv2d`, `ConvTranspose2d`, `Linear`: parameters held in float32
+    (flax's default `param_dtype`); the input, the weight and the bias are
+    cast to the module's `compute_dtype` at the call, as flax's `dtype`
+    does. The model sets `compute_dtype` from `ModelConfig.compute_dtype`.
+  * `LayerNorm`: flax's `nn.LayerNorm(dtype=float32)`: the input is cast to
+    float32, and so is the output.
   * `BatchNorm`: flax's `nn.BatchNorm` in training. Its `momentum` argument
     is flax's (running = m·running + (1 − m)·batch; torch's own `momentum`
     attribute holds 1 − m). Training normalises with the biased batch
@@ -37,6 +39,22 @@ class ConvTranspose2d(nn.ConvTranspose2d):
         bias = None if self.bias is None else self.bias.to(dt)
         return F.conv_transpose2d(x.to(dt), self.weight.to(dt), bias, self.stride, self.padding,
                                   self.output_padding, self.groups, self.dilation)
+
+
+class Linear(nn.Linear):
+    """flax `nn.Dense`: weight [out, in] (the transpose of flax's kernel)."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
 
 
 class BatchNorm(nn.modules.batchnorm._BatchNorm):

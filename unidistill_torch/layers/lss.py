@@ -1,10 +1,11 @@
 """Lift-Splat-Shoot camera -> BEV encoder, counterpart of the JAX
-`layers/lss.py` (single sweep).
+`layers/lss.py`.
 
-ResNet-50 -> SECONDFPN -> 1×1 depth net (D depth logits + C context
-channels, in float32 from there on) -> softmax over depth -> frustum geometry
-(ida⁻¹, intrin⁻¹, sensor2ego, bda) -> fused depth x context BEV pooling
-(`ops/bev_pool.py`, kernel K1 on the card).
+ResNet-50 or Swin-T (`cfg.img_backbone` "resnet50" or "swin") -> SECONDFPN
+-> 1×1 depth net (D depth logits + C context channels, in float32 from
+there on) -> softmax over depth -> frustum geometry (ida⁻¹, intrin⁻¹,
+sensor2ego, bda) -> fused depth x context BEV pooling (`ops/bev_pool.py`,
+kernel K1 on the card).
 
 Numerics kept from the JAX module:
   * the frustum is built in numpy float32 exactly as there;
@@ -12,6 +13,14 @@ Numerics kept from the JAX module:
   * the 4×4 transforms are elementwise products summed over the last axis,
     never a matmul, so TF32 settings cannot move a point across a cell;
   * cell coordinates truncate toward zero (the reference's `.int()`).
+
+Multi-sweep input (images [B, S, N, H, W, 3], matrices [B, S, N, 4, 4],
+`bda_mat` [B, 4, 4] shared): each sweep runs the whole pipeline with the
+same weights, the key sweep (0) first; sweeps 1.. run under `no_grad`
+(JAX's `stop_gradient`: no graph is kept). In train mode every sweep's
+BatchNorms update their running statistics with its own batch statistics,
+in sweep order, as flax's `batch_stats` do. The BEV maps are concatenated
+on the channels: [B, S·C, ny, nx].
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ from unidistill_torch.configs.nuscenes import CameraEncoderConfig
 from unidistill_torch.layers.common import Conv2d
 from unidistill_torch.layers.resnet import ResNet
 from unidistill_torch.layers.second_fpn import SECONDFPN
+from unidistill_torch.layers.swin import SwinTransformer
 from unidistill_torch.ops.bev_pool import bev_pool_outer
 
 
@@ -98,10 +108,11 @@ def get_geometry(
 class LSSFPN(nn.Module):
     def __init__(self, cfg: CameraEncoderConfig):
         super().__init__()
-        if cfg.img_backbone != "resnet50":
-            raise NotImplementedError(f"img_backbone {cfg.img_backbone!r} is not ported")
+        backbones = {"resnet50": ResNet, "swin": SwinTransformer}
+        if cfg.img_backbone not in backbones:
+            raise ValueError(f"img_backbone {cfg.img_backbone!r}: expected one of {sorted(backbones)}")
         self.cfg = cfg
-        self.img_backbone = ResNet()
+        self.img_backbone = backbones[cfg.img_backbone]()
         self.img_neck = SECONDFPN(cfg.img_neck_in_channels, cfg.img_neck_out_channels,
                                   cfg.img_neck_upsample_strides)
         self.depth_net = Conv2d(sum(cfg.img_neck_out_channels),
@@ -111,10 +122,22 @@ class LSSFPN(nn.Module):
     def forward(self, imgs: torch.Tensor, mats: Dict[str, torch.Tensor]) -> torch.Tensor:
         """imgs [B, N, H, W, 3] (normalised); mats: sensor2ego_mats /
         intrin_mats / ida_mats [B, N, 4, 4], bda_mat [B, 4, 4] (optional).
-        Returns the BEV feature [B, C, ny, nx] f32."""
+        Returns the BEV feature [B, C, ny, nx] f32. Or S sweeps: imgs
+        [B, S, N, H, W, 3], mats [B, S, N, 4, 4] (bda_mat [B, 4, 4]) ->
+        [B, S·C, ny, nx]."""
+        if imgs.dim() == 5:
+            return self._single_sweep(imgs, mats)
+        if imgs.dim() != 6:
+            raise ValueError(f"imgs has shape {tuple(imgs.shape)}: expected [B, N, H, W, 3] "
+                             "or [B, S, N, H, W, 3]")
+        sweep = lambda s: {k: (v if k == "bda_mat" else v[:, s]) for k, v in mats.items()}
+        bevs = [self._single_sweep(imgs[:, 0], sweep(0))]
+        with torch.no_grad():
+            bevs += [self._single_sweep(imgs[:, s], sweep(s)) for s in range(1, imgs.shape[1])]
+        return torch.cat(bevs, dim=1)
+
+    def _single_sweep(self, imgs: torch.Tensor, mats: Dict[str, torch.Tensor]) -> torch.Tensor:
         cfg = self.cfg
-        if imgs.dim() != 5:
-            raise NotImplementedError("multi-sweep camera input is not ported")
         B, N, H, W, _ = imgs.shape
         x = imgs.reshape(B * N, H, W, 3).permute(0, 3, 1, 2)
         fpn = self.img_neck(self.img_backbone(x))  # [B*N, 512, fH, fW]

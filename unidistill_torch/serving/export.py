@@ -53,9 +53,11 @@ class Spec(NamedTuple):
     dtype: str  # numpy's name: "float32", "int32", "bool"
 
 
-def _batch_spec(cfg, batch_size: int, input_mode: str = "points") -> Dict[str, Any]:
+def _batch_spec(cfg, batch_size: int, input_mode: str = "points", sweeps: int = 1) -> Dict[str, Any]:
     """Shapes and dtypes of the eval input batch at the configured caps, as
-    the JAX `_batch_spec` (without its `topo_*` tables)."""
+    the JAX `_batch_spec` (without its `topo_*` tables); with `sweeps` > 1
+    (weights of a multi-sweep camera encoder), imgs and the three per-camera
+    mats carry a sweep axis after the batch."""
     if input_mode not in INPUT_MODES:
         raise ValueError(f"unknown input_mode {input_mode!r}")
     spec: Dict[str, Any] = {}
@@ -72,8 +74,9 @@ def _batch_spec(cfg, batch_size: int, input_mode: str = "points") -> Dict[str, A
     if cfg.with_camera:
         n = cfg.camera_encoder.num_cams
         h, w = cfg.camera_encoder.final_dim
-        spec["imgs"] = Spec((batch_size, n, h, w, 3), "float32")
-        m44 = Spec((batch_size, n, 4, 4), "float32")
+        lead = (batch_size,) if sweeps == 1 else (batch_size, sweeps)
+        spec["imgs"] = Spec(lead + (n, h, w, 3), "float32")
+        m44 = Spec(lead + (n, 4, 4), "float32")
         spec["mats"] = dict(sensor2ego_mats=m44, intrin_mats=m44, ida_mats=m44,
                             bda_mat=Spec((batch_size, 4, 4), "float32"))
     # gt_boxes unused at eval but part of the batch contract
@@ -129,12 +132,13 @@ def export_detector(cfg, state_dict, out_dir: str, batch_size: int = 1,
 
     `input_mode`: "points" (the program voxelises) or "host_voxels"
     (loader-side voxels; see `_batch_spec`)."""
-    from unidistill_torch.models.bevfusion import BEVFusionCenterHead
+    from unidistill_torch.models.bevfusion import BEVFusionCenterHead, sweeps_from_state_dict
     from unidistill_torch.serving.predictor import resolve_device
 
-    spec = _batch_spec(cfg, batch_size, input_mode)
+    sweeps = sweeps_from_state_dict(cfg, state_dict)
+    spec = _batch_spec(cfg, batch_size, input_mode, sweeps)
     device = resolve_device(device)
-    model = BEVFusionCenterHead(cfg)
+    model = BEVFusionCenterHead(cfg, sweeps)
     model.load_state_dict(dict(state_dict), strict=True)
     model = model.to(device).eval()
     example = _unflatten_paths({

@@ -13,6 +13,10 @@ and for a detector with cameras
   imgs           [B, N_cam, H, W, 3] float32 (normalised)
   mats           sensor2ego_mats / intrin_mats / ida_mats [B, N_cam, 4, 4]
                  and bda_mat [B, 4, 4], float32
+or, for weights of a multi-sweep camera encoder (S sweeps, read off the
+state dict: `models.bevfusion.sweeps_from_state_dict`), imgs
+[B, S, N_cam, H, W, 3] and those three mats [B, S, N_cam, 4, 4] (sweep 0
+the key frame; bda_mat [B, 4, 4] shared)
 (the fusion detector takes both; other keys, such as gt_boxes, are
 ignored). `predict` returns the eval
 step's fixed-size ROI dict: boxes [B, R, 9], scores [B, R], labels [B, R]
@@ -30,7 +34,7 @@ import numpy as np
 import torch
 
 from unidistill_torch.configs.nuscenes import ModelConfig
-from unidistill_torch.models.bevfusion import BEVFusionCenterHead
+from unidistill_torch.models.bevfusion import BEVFusionCenterHead, sweeps_from_state_dict
 from unidistill_torch.training.steps import eval_step
 
 MAT_KEYS = ("sensor2ego_mats", "intrin_mats", "ida_mats")
@@ -64,7 +68,7 @@ class Detector:
     def __init__(self, cfg: ModelConfig, state_dict: Mapping[str, Any], device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
-        model = BEVFusionCenterHead(cfg)
+        model = BEVFusionCenterHead(cfg, sweeps_from_state_dict(cfg, state_dict))
         model.load_state_dict(dict(state_dict), strict=True)
         self.model = model.to(self.device).eval()
 
@@ -90,14 +94,16 @@ class Detector:
         H, W = cc.final_dim
         imgs = batch["imgs"]
         shape = tuple(imgs.shape)
-        if len(shape) != 5 or shape[1:] != (cc.num_cams, H, W, 3):
-            raise ValueError(f"batch['imgs'] has shape {shape}, expected (B, {cc.num_cams}, {H}, {W}, 3)")
+        sweeps = () if self.model.sweeps == 1 else (self.model.sweeps,)
+        want = sweeps + (cc.num_cams, H, W, 3)
+        if shape[1:] != want:
+            raise ValueError(f"batch['imgs'] has shape {shape}, expected (B, {', '.join(map(str, want))})")
         B = shape[0]
         mats = batch["mats"]
         for k in MAT_KEYS:
-            if tuple(mats[k].shape) != (B, cc.num_cams, 4, 4):
+            if tuple(mats[k].shape) != (B,) + sweeps + (cc.num_cams, 4, 4):
                 raise ValueError(f"batch['mats'][{k!r}] has shape {tuple(mats[k].shape)}, "
-                                 f"expected ({B}, {cc.num_cams}, 4, 4)")
+                                 f"expected {(B,) + sweeps + (cc.num_cams, 4, 4)}")
         if "bda_mat" in mats and tuple(mats["bda_mat"].shape) != (B, 4, 4):
             raise ValueError(f"batch['mats']['bda_mat'] has shape {tuple(mats['bda_mat'].shape)}, "
                              f"expected ({B}, 4, 4)")

@@ -2,8 +2,9 @@
 smoke runs and measurements on the card (no dataset and no trained weights
 needed).
 
-`random_state_dict(cfg, seed)` gives weights the detector (camera, LiDAR or
-fusion) loads strictly;
+`random_state_dict(cfg, seed, sweeps)` gives weights the detector (camera,
+LiDAR or fusion; ResNet or Swin image backbone; `sweeps` camera sweeps)
+loads strictly;
 `calibrate_batchnorm(model, inputs)` then sets every BatchNorm's running
 statistics to those of one batch, so that activations keep a unit scale
 through the random network (random statistics let them grow to ~1e5 at the
@@ -11,7 +12,11 @@ BEV map, where bf16 rounding hides every difference under test).
 `nuscenes_batch(cfg, B, seed)` gives a batch with nuScenes-like camera
 matrices: six cameras around the ego car 1.6 m up, 1266 px focal length on
 the 1600×900 sensor, the image resized by 0.44 and cropped 140 rows (the IDA
-of the eval pipeline), identity BDA, normalised random images.
+of the eval pipeline), identity BDA, normalised random images; with
+`sweeps` S > 1, S sweeps of them (images [B, S, N, H, W, 3], camera
+matrices [B, S, N, 4, 4], the key frame first), each earlier sweep's
+`sensor2ego` moved back by one ego step (`LIDAR_EGO_STEP`, 0.5 m along x,
+as between two of `lidar_batch`'s sweeps).
 `nuscenes_cells(cfg, B, seed)` are the flat BEV cells of the frustum points
 under those cameras, as the camera encoder computes them; with a
 `DataConfig`, under the training image augmentation (`train_ida_mats`:
@@ -49,12 +54,13 @@ from unidistill_torch.ops.bev_pool import _linear_index
 BatchNorm = nn.modules.batchnorm._BatchNorm
 
 
-def random_state_dict(cfg: ModelConfig, seed: int = 0) -> Dict[str, torch.Tensor]:
-    """Seeded random weights: He-scaled convs, BN scales near 1, small
-    biases. The BN running statistics (0 and 1) are placeholders for
+def random_state_dict(cfg: ModelConfig, seed: int = 0, sweeps: int = 1) -> Dict[str, torch.Tensor]:
+    """Seeded random weights: He-scaled convs and linear layers, BN and
+    LayerNorm scales near 1, small biases, Swin's bias tables at std 0.02.
+    The BN running statistics (0 and 1) are placeholders for
     `calibrate_batchnorm`."""
     g = torch.Generator().manual_seed(seed)
-    model = BEVFusionCenterHead(cfg)
+    model = BEVFusionCenterHead(cfg, sweeps)
     modules = dict(model.named_modules())
     out = {}
     for key, t in model.state_dict().items():
@@ -73,7 +79,11 @@ def random_state_dict(cfg: ModelConfig, seed: int = 0) -> Dict[str, torch.Tensor
             v = randn() * (2.0 / (t.shape[1] * t.shape[2] * t.shape[3])) ** 0.5
         elif isinstance(mod, SubMConv) and leaf == "weight":  # [K, Cin, Cout]
             v = randn() * (2.0 / (t.shape[0] * t.shape[1])) ** 0.5
-        elif isinstance(mod, BatchNorm) and leaf == "weight":
+        elif isinstance(mod, nn.Linear) and leaf == "weight":
+            v = randn() * (2.0 / t.shape[1]) ** 0.5
+        elif leaf == "relative_position_bias_table":
+            v = 0.02 * randn()
+        elif isinstance(mod, (BatchNorm, nn.LayerNorm)) and leaf == "weight":
             v = 1.0 + 0.1 * randn()
         elif leaf == "running_var":
             v = torch.ones(t.shape)
@@ -107,13 +117,14 @@ def calibrate_batchnorm(model: nn.Module, inputs: Dict) -> None:
         m.num_batches_tracked.zero_()
 
 
-def _images(cfg: ModelConfig, B: int, rng: np.random.RandomState) -> np.ndarray:
+def _images(cfg: ModelConfig, B: int, rng: np.random.RandomState, sweeps: int = 1) -> np.ndarray:
     n = cfg.camera_encoder.num_cams
     H, W = cfg.camera_encoder.final_dim
-    return rng.randn(B, n, H, W, 3).astype(np.float32)
+    lead = (B,) if sweeps == 1 else (B, sweeps)
+    return rng.randn(*lead, n, H, W, 3).astype(np.float32)
 
 
-def nuscenes_batch(cfg: ModelConfig, B: int, seed: int) -> Dict:
+def nuscenes_batch(cfg: ModelConfig, B: int, seed: int, sweeps: int = 1) -> Dict:
     rng = np.random.RandomState(seed)
     n = cfg.camera_encoder.num_cams
     yaws = np.deg2rad([0.0, -55.0, 55.0, 180.0, -110.0, 110.0])[:n]
@@ -132,7 +143,11 @@ def nuscenes_batch(cfg: ModelConfig, B: int, seed: int) -> Dict:
     ida[..., 0, 0] = ida[..., 1, 1] = 0.44
     ida[..., 1, 3] = -140.0
     bda = np.broadcast_to(np.eye(4, dtype=np.float32), (B, 4, 4)).copy()
-    return dict(imgs=_images(cfg, B, rng),
+    if sweeps > 1:  # sweep s was taken s ego steps back: its cameras sit behind the key frame's
+        s2e = np.stack([s2e] * sweeps, axis=1)
+        s2e[..., 0, 3] -= LIDAR_EGO_STEP * np.arange(sweeps, dtype=np.float32)[None, :, None]
+        intrin, ida = (np.stack([m] * sweeps, axis=1) for m in (intrin, ida))
+    return dict(imgs=_images(cfg, B, rng, sweeps),
                 mats=dict(sensor2ego_mats=s2e, intrin_mats=intrin, ida_mats=ida, bda_mat=bda))
 
 
@@ -287,6 +302,33 @@ def lidar_batch(cfg: ModelConfig, B: int, seed: int) -> Dict:
     at random and kept in order (a small configuration's P thins it)."""
     points, mask, _ = _lidar_clouds(cfg, B, seed)
     return dict(points=points, points_mask=mask)
+
+
+def pillars(points: np.ndarray, mask: np.ndarray, voxel_size, point_cloud_range,
+            max_points: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """One cloud's points [P, C] (mask [P]) grouped into the pillars of a
+    grid one cell high (`voxel_size` (vx, vy, vz) over `point_cloud_range`):
+    features [V, max_points, C] (each pillar's first `max_points` points in
+    input order, zero-padded), coords [V, 3] int32 (0, y, x) and point
+    counts [V] int32, pillars in ascending (y, x) order; points outside the
+    range are dropped. The inputs of `layers/pillar_vfe.PillarVFE`."""
+    pts = points[mask]
+    lo, hi = np.asarray(point_cloud_range[:3]), np.asarray(point_cloud_range[3:])
+    nx, ny = (int(round((hi[i] - lo[i]) / voxel_size[i])) for i in (0, 1))
+    ix = np.floor((pts[:, 0] - lo[0]) / voxel_size[0]).astype(np.int64)
+    iy = np.floor((pts[:, 1] - lo[1]) / voxel_size[1]).astype(np.int64)
+    ok = (ix >= 0) & (ix < nx) & (iy >= 0) & (iy < ny) & (pts[:, 2] >= lo[2]) & (pts[:, 2] < hi[2])
+    pts, key = pts[ok], (iy * nx + ix)[ok]
+    order = np.argsort(key, kind="stable")
+    pts, key = pts[order], key[order]
+    keys, start, counts = np.unique(key, return_index=True, return_counts=True)
+    pillar = np.repeat(np.arange(len(keys)), counts)
+    slot = np.arange(len(key)) - np.repeat(start, counts)
+    keep = slot < max_points
+    feats = np.zeros((len(keys), max_points, pts.shape[1]), np.float32)
+    feats[pillar[keep], slot[keep]] = pts[keep]
+    coords = np.stack([np.zeros_like(keys), keys // nx, keys % nx], 1).astype(np.int32)
+    return feats, coords, np.minimum(counts, max_points).astype(np.int32)
 
 
 def _scene_sweeps(rng: np.random.RandomState, n_sweeps: int):

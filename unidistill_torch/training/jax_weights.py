@@ -12,8 +12,11 @@ with dots. Layouts:
     not; the inverse of the JAX importer's `conv_transpose2d`)
   * sparse conv kernel [K, Cin, Cout]        -> the same array (the LiDAR
     encoder's weights keep the JAX layout, z-major taps; conv_out has K = 3)
+  * Dense kernel [in, out]                   -> Linear weight [out, in]
   * BatchNorm scale/bias + mean/var          -> weight/bias + running_*
-    (the LiDAR encoder's MaskedBatchNorms included)
+    (the LiDAR encoder's MaskedBatchNorms included); LayerNorm scale/bias
+    -> weight/bias
+  * Swin's `relative_position_bias_table` [(2ws-1)², heads] -> the same
   * the fusion encoder's leaves (`fusion_encoder.att_conv` 1×1 kernel and
     bias, `reduce_conv` 3×3 kernel, `reduce_bn`) follow the rules above
   * det_head out_kernel [3, 3, G, hc, o_max] -> grouped out_conv weight
@@ -66,8 +69,12 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping, cfg: ModelConfig)
             sd["det_head.out_bias"] = a.reshape(-1)
         elif path == ("awl_params",):
             sd["awl_params"] = a
+        elif path[-1] == "relative_position_bias_table":
+            sd[".".join(path)] = a
         elif leaf == "kernel":
-            if mod.startswith("lidar_encoder."):
+            if a.ndim == 2:
+                sd[f"{mod}.weight"] = a.T
+            elif mod.startswith("lidar_encoder."):
                 sd[f"{mod}.weight"] = a
             elif mod in deconvs:
                 sd[f"{mod}.weight"] = a[::-1, ::-1].transpose(2, 3, 0, 1)

@@ -68,7 +68,11 @@ def init_params(model: nn.Module, seed: int) -> nn.Module:
         `out_kernel_init` takes fan_in over (kh, kw, hc) too); biases 0;
       * the CenterHead's `out_bias`: the heatmap rows at `init_bias`, the
         rest 0 (`out_bias_init`, as the module builds it);
-      * BatchNorm scale 1, bias 0, running statistics 0 and 1;
+      * every linear layer (Swin's): lecun_normal as the convs, fan_in its
+        input width; biases 0;
+      * Swin's relative position bias tables: normal truncated at ±2 std,
+        std 0.02 (flax's `truncated_normal(0.02)`);
+      * BatchNorm and LayerNorm scale 1, bias 0, running statistics 0 and 1;
       * `awl_params` 1.
     Returns the model."""
     g = torch.Generator().manual_seed(seed)
@@ -76,13 +80,16 @@ def init_params(model: nn.Module, seed: int) -> nn.Module:
         if isinstance(mod, SubMConv):
             K, cin, _ = mod.weight.shape
             mod.weight.normal_(0.0, math.sqrt(2.0 / (K * cin)), generator=g)
-        elif isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+        elif isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             w = mod.weight
-            taps = w.shape[2] * w.shape[3]
+            taps = w[0, 0].numel()
             fan_in = (w.shape[0] if isinstance(mod, nn.ConvTranspose2d) else w.shape[1]) * taps
             std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
             nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=g)
-        elif isinstance(mod, BatchNorm):
+        elif hasattr(mod, "relative_position_bias_table"):  # the leaf, as in random_state_dict
+            nn.init.trunc_normal_(mod.relative_position_bias_table, 0.0, 0.02, -0.04, 0.04, generator=g)
+            continue
+        elif isinstance(mod, (BatchNorm, nn.LayerNorm)):
             mod.reset_parameters()
         else:
             continue

@@ -11,14 +11,20 @@ PyTorch layouts, so most tensors keep theirs:
     also gets a zero `num_batches_tracked`)
   * spconv 3D conv [O, kz, ky, kx, I] (spconv ≥2.x KRSC; the other two
     layouts are recognised by shape)              -> [K = kz·ky·kx, I, O]
+  * an mmdet Swin image backbone (`patch_embed.projection`,
+    `stages.{i}.blocks.{j}` with `attn.w_msa.*`, `ffn.layers.0.0` /
+    `ffn.layers.1`, `stages.{i}.downsample.{norm,reduction}`, out
+    `norm{i}`)                                    -> `layers/swin.py`'s
+    names, Linear and LayerNorm as they are; the patch merge's norm and the
+    reduction's input columns permuted from mmdet's channel-major Unfold
+    order (c·4 + p) to the port's position-major one (p·C + c)
   * the CenterHead's per-branch SepHeads          -> the fused head: conv0
     weights, biases and BNs stacked along the output channels, the out
     convs zero-padded to o_max rows each and stacked (the grouped
     `out_conv`), their biases likewise (`out_bias`)
 Missing names are skipped, not errors: the reference loads teachers with
 strict=False + shape filtering, so partial state dicts convert partially
-(the head's branches all or none). A Swin image backbone is not ported and
-raises.
+(the head's branches all or none).
 """
 from __future__ import annotations
 
@@ -115,6 +121,36 @@ def _resnet50(b: _Converter, t: str, j: str) -> None:
                 b.bn(f"{tb}.downsample.1", f"{jb}.downsample_bn")
 
 
+def _swin(b: _Converter, t: str, j: str, embed_dim: int = 96, depths=(2, 2, 6, 2),
+          out_indices=(1, 2, 3)) -> None:
+    """mmdet SwinTransformer (the reference's Swin-T camera variant); its
+    LayerNorms and Linears keep torch's layout, so they copy as a conv does."""
+    b.conv(f"{t}.patch_embed.projection", f"{j}.patch_embed", bias=True)
+    b.conv(f"{t}.patch_embed.norm", f"{j}.patch_norm", bias=True)
+    dim = embed_dim
+    for st, depth in enumerate(depths):
+        for blk in range(depth):
+            tb, jb = f"{t}.stages.{st}.blocks.{blk}", f"{j}.stage{st}_block{blk}"
+            for n in ("norm1", "norm2"):
+                b.conv(f"{tb}.{n}", f"{jb}.{n}", bias=True)
+            table = f"{tb}.attn.w_msa.relative_position_bias_table"
+            if table in b.sd:
+                b.put(f"{jb}.attn.relative_position_bias_table", b.sd[table])
+            b.conv(f"{tb}.attn.w_msa.qkv", f"{jb}.attn.qkv", bias=True)
+            b.conv(f"{tb}.attn.w_msa.proj", f"{jb}.attn.proj", bias=True)
+            b.conv(f"{tb}.ffn.layers.0.0", f"{jb}.mlp_fc1", bias=True)
+            b.conv(f"{tb}.ffn.layers.1", f"{jb}.mlp_fc2", bias=True)
+        down = f"{t}.stages.{st}.downsample"
+        if f"{down}.reduction.weight" in b.sd:
+            perm = torch.tensor([c * 4 + p for p in range(4) for c in range(dim)])
+            b.put(f"{j}.merge_norm{st}.weight", torch.as_tensor(b.sd[f"{down}.norm.weight"])[perm])
+            b.put(f"{j}.merge_norm{st}.bias", torch.as_tensor(b.sd[f"{down}.norm.bias"])[perm])
+            b.put(f"{j}.merge_reduction{st}.weight", torch.as_tensor(b.sd[f"{down}.reduction.weight"])[:, perm])
+        dim *= 2
+    for st in out_indices:
+        b.conv(f"{t}.norm{st}", f"{j}.out_norm{st}", bias=True)
+
+
 def _bev_backbone(b: _Converter, t: str, j: str, layer_nums) -> None:
     for i, n in enumerate(layer_nums):
         # torch Sequential: [ZeroPad, Conv, BN, ReLU, (Conv, BN, ReLU) * n]
@@ -169,10 +205,9 @@ def convert_state_dict(sd: Mapping[str, torch.Tensor], cfg: ModelConfig) -> Dict
     if cfg.with_lidar and any(k.startswith("lidar_encoder") for k in sd):
         _sparse_backbone(b, "lidar_encoder.backbone_3d", "lidar_encoder.backbone_3d")
     if cfg.with_camera and any(k.startswith("camera_encoder") for k in sd):
-        if cfg.camera_encoder.img_backbone != "resnet50":
-            raise NotImplementedError(f"img_backbone {cfg.camera_encoder.img_backbone!r} is not ported")
         cam = "camera_encoder.backbone"
-        _resnet50(b, f"{cam}.img_backbone", "camera_encoder.img_backbone")
+        backbone = _swin if cfg.camera_encoder.img_backbone == "swin" else _resnet50
+        backbone(b, f"{cam}.img_backbone", "camera_encoder.img_backbone")
         for i in range(len(cfg.camera_encoder.img_neck_upsample_strides)):
             b.conv(f"{cam}.img_neck.deblocks.{i}.0", f"camera_encoder.img_neck.deblock{i}_conv")
             b.bn(f"{cam}.img_neck.deblocks.{i}.1", f"camera_encoder.img_neck.deblock{i}_bn")
