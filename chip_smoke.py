@@ -157,7 +157,8 @@ Phases, each printed on its own line:
            modelled L2 bytes; the kernels line carries s2
   subm prod vs fused   ms/conv of both paths per stage and their max |diff|
            (within 2e-2 of max |prod|)
-  export camera, export lidar, export fusion, export lidar host_voxels
+  export camera, export lidar, export fusion, export lidar host_voxels,
+  export swin, export multisweep
            each detector at full width, batch 4 (seeded weights, BatchNorm
            calibrated) exported on the card with
            `serving.export.export_detector` ("points" mode; the LiDAR
@@ -171,7 +172,10 @@ Phases, each printed on its own line:
            often a request as the live detector. Prints export s, artifact
            MB, load s, the loaded program's median latency (on device
            inputs) against the live request's, `predict`'s with numpy in
-           and out, launches, sites per stage and bit_equal
+           and out, launches, sites per stage and bit_equal. The Swin
+           camera detector and the 2-sweep ResNet camera detector (on
+           2-sweep nuScenes-like batches) must predict bit-equal to the live
+           detector and launch K1 once a sweep
   launch path  each custom op `unidistill::*` against a direct call of its
            bare ctypes wrapper on the export phases' recorded request
            arguments (K1-K4) and their gradients' shapes (K5, K4 dgrad,
@@ -181,6 +185,14 @@ Phases, each printed on its own line:
   flops    `utils.flops.model_flops_per_frame` of the three eval forwards
            (batch 4) and `matmul_flops` of one camera<-LiDAR distill step,
            a frame, with the JAX package's pins beside them
+  native   the host C++ library (`data/native.py`: the sweeps' transform,
+           the range filter, points in boxes, both voxelisers, the topology
+           planner, the image normalisation) built with this machine's
+           compiler (seconds, compiler, flags), each function against its
+           plain version (numpy or torch) on one full-width frame of
+           `write_nuscenes` (a 10-sweep cloud, six 900x1600 images):
+           floats within NATIVE_TOL_OF_MAX of max(1, max |ref|), integers
+           and masks exact; host ms of each beside its plain version's
   cli distill lidar->camera   the launchers' CLIs at full width, in a
            temporary directory: `serving.synthetic.write_nuscenes` writes an
            on-disk nuScenes (12 training and 4 validation frames, six
@@ -218,6 +230,24 @@ Phases, each printed on its own line:
            two-rank step on the CPU: metrics rtol 1e-3, the averaged
            gradients within 5e-3 of their scale, the parameters' change
            within 1e-2 lr (2 lr where |g| is below 1e-3 of its scale)
+  spatial distill lidar->camera   the camera<-LiDAR step through the
+           `Trainer`'s spatial path (`train.spatial_bev` 2): two ranks on
+           the one card in a gloo world, one dp shard, each rank the whole
+           batch of 4, the BEV backbone and head on its 45 of the 90 coarse
+           rows with halos, their BatchNorm statistics over both ranks (the
+           encoders' from the rank's rows, the whole batch); one
+           step from the initial weights, whose loss must lie within
+           SPATIAL_LOSS_RTOL_BF16 of the one-process step's on the same
+           batch and weights, then TIMED_STEPS timed steps with every launch
+           count set to 0 just before and read just after. Checks: both
+           ranks hold the same parameters bit for bit after every step and
+           report the same losses; each rank launched K1 and K5 once and K4
+           21 times a step; finite metrics. Prints s/step (rank 0's clock),
+           frames/s, each rank's peak memory and launches, the loss terms,
+           and each rank's all-reduce and all-gather calls a step with the
+           host seconds spent in them (gloo synchronises each with the card)
+  spatial tiny   the tiny float32 spatial distill step over the same two
+           ranks, on the card (TF32 off) against the CPU, as ddp tiny
   ddp nccl two tiny distill steps through a `Trainer` that makes an NCCL
            group of one rank from `torchrun`'s environment
            (`parallel.mesh.init_from_env`), against the same steps with no
@@ -335,6 +365,24 @@ DDP_LOSS_RTOL = 1e-6
 # with no group are; else within this multiple of their difference (the
 # backward of grid_sample and of the losses' gathers adds with atomics)
 DDP_NCCL_SPREAD = 4.0
+# the spatial phases: one dp shard of SPATIAL_BEV bev ranks on the one card
+# (gloo), each rank loading the whole global batch of BATCH frames and
+# running the BEV backbone and head on its half of the rows. The first
+# step's loss against the one-process step on the same batch and weights,
+# relative: in bf16 the split changes the backbone's and the head's
+# convolution shapes, and with them cuDNN's algorithms and their rounding,
+# which the random-init train-mode BatchNorms carry through ~20 layers; the
+# global BatchNorm statistics sum Σx and Σx² where the one-process step
+# takes cuDNN's own
+SPATIAL_BEV = 2
+SPATIAL_LOSS_RTOL_BF16 = 1e-2
+# [native]: the host library against its plain versions on one full-width
+# frame (a 10-sweep cloud, six 900x1600 images): points after the 4x4
+# transform and normalised images as max |diff| over max(1, max |ref|)
+# (the library rounds in its own order and multiplies by 1/std); voxel
+# means (float64 sums against float32 ones) likewise; everything else exact
+NATIVE_TOL_OF_MAX = 1e-5
+NATIVE_SEED = 60
 # the export phases: calls timed for the loaded and the live latency
 # (medians), the loading process's time limit, and the loaded artifact's
 # boxes and scores against the live detector's, as max |diff| over max(1,
@@ -1681,36 +1729,44 @@ def export_phases(dev) -> dict:
     import pickle
     import statistics
     import tempfile
-    from unidistill_torch.configs.nuscenes import camera_exp, fusion_exp, lidar_exp
+    from unidistill_torch.configs.nuscenes import (
+        SWIN_CAMERA_OVERRIDES, apply_overrides, camera_exp, fusion_exp, lidar_exp)
     from unidistill_torch.kernels import build
     from unidistill_torch.layers.lidar_encoder import build_rulebooks, stage_shapes
     from unidistill_torch.ops import bev_pool, nms, sparse_conv
     from unidistill_torch.serving.export import _batch_spec, _flatten_paths, export_detector
     from unidistill_torch.serving.predictor import Detector
-    from unidistill_torch.serving.synthetic import calibrate_batchnorm, random_state_dict, train_batch
+    from unidistill_torch.serving.synthetic import (
+        calibrate_batchnorm, nuscenes_batch, random_state_dict, train_batch)
     from unidistill_torch.training.steps import model_inputs, voxelize_batch
 
     t_phase = time.time()
     recorded = {}
-    # (name, config, input mode, weight seed); every detector takes its keys
-    # of the same two camera + LiDAR batches
-    cases = (("camera", camera_exp, "points", 50), ("lidar", lidar_exp, "points", 51),
-             ("fusion", fusion_exp, "points", 52), ("lidar host_voxels", lidar_exp, "host_voxels", 51))
+    # (name, config, input mode, weight seed, camera sweeps); every detector
+    # takes its keys of the same two camera + LiDAR batches, the 2-sweep
+    # camera detector two nuScenes-like batches of its own
+    swin_exp = lambda: apply_overrides(camera_exp(), SWIN_CAMERA_OVERRIDES)  # noqa: E731
+    cases = (("camera", camera_exp, "points", 50, 1), ("lidar", lidar_exp, "points", 51, 1),
+             ("fusion", fusion_exp, "points", 52, 1), ("lidar host_voxels", lidar_exp, "host_voxels", 51, 1),
+             ("swin", swin_exp, "points", 53, 1), ("multisweep", camera_exp, "points", 54, SWEEPS))
     fcfg = fusion_exp().model
     full_batches = [to_device(train_batch(fcfg, fcfg, BATCH, seed=s), dev) for s in EXPORT_BATCH_SEEDS]
     with tempfile.TemporaryDirectory(prefix="unidistill_export_") as tmp:
         jobs, live = {}, {}
-        for name, exp, mode, seed in cases:
+        for name, exp, mode, seed, sweeps in cases:
             cfg = exp().model
             batches = []
-            for full in full_batches:
-                b = {k: full[k] for k in _flatten_paths(_batch_spec(cfg, BATCH)) if "/" not in k}
+            for full, batch_seed in zip(full_batches, EXPORT_BATCH_SEEDS):
+                if sweeps > 1:
+                    full = dict(to_device(nuscenes_batch(cfg, BATCH, seed=batch_seed, sweeps=sweeps), dev),
+                                gt_boxes=full["gt_boxes"])
+                b = {k: full[k] for k in _flatten_paths(_batch_spec(cfg, BATCH, "points", sweeps)) if "/" not in k}
                 if cfg.with_camera:
                     b["mats"] = full["mats"]
                 if mode == "host_voxels":
                     b = dict(voxelize_batch(full, cfg, dev, training=False), gt_boxes=full["gt_boxes"])
                 batches.append(b)
-            det = Detector(cfg, random_state_dict(cfg, seed=seed), device=dev)
+            det = Detector(cfg, random_state_dict(cfg, seed=seed, sweeps=sweeps), device=dev)
             calibrate_batchnorm(det.model, model_inputs(batches[0], cfg, dev, training=False))
             if cfg.with_lidar:  # the stages' active sites of each batch
                 sites = []
@@ -1726,7 +1782,7 @@ def export_phases(dev) -> dict:
             # the live detector: ROIs, one request's launches, latency
             recorders = ([Recorder(bev_pool, "bev_pool_cells_cuda"), Recorder(sparse_conv, "sparse_conv_cuda"),
                           Recorder(nms, "rotated_iou_mask_cuda"), Recorder(nms, "nms_greedy_select_cuda")]
-                         if mode == "points" and name != "fusion" else [])
+                         if name in ("camera", "lidar") else [])
             with contextlib.ExitStack() as stack:
                 for r in recorders:
                     stack.enter_context(r)
@@ -1771,7 +1827,7 @@ def export_phases(dev) -> dict:
             loaded = pickle.load(f)
     if loaded["modules"]:
         raise RuntimeError(f"[export] the loading process imported {loaded['modules']}")
-    for name, _, mode, _ in cases:
+    for name, _, mode, _, sweeps in cases:
         got, ref = loaded[name], live[name]
         errs, bit_equal = {}, True
         for g, r in zip(got["rois"], ref["rois"]):
@@ -1787,6 +1843,13 @@ def export_phases(dev) -> dict:
         if got["launches"] != ref["launches"]:
             raise RuntimeError(f"[export {name}] the loaded artifact launched {got['launches']} a request, "
                                f"the live detector {ref['launches']}")
+        if name in ("swin", "multisweep"):  # the card check of the CPU tests' bit-equality
+            if not bit_equal:
+                raise RuntimeError(f"[export {name}] the loaded artifact's ROIs are not bit-equal to the live "
+                                   f"detector's: {errs}")
+            if got["launches"].get("bev_pool_fwd", 0) != sweeps:
+                raise RuntimeError(f"[export {name}] K1 launched {got['launches'].get('bev_pool_fwd', 0)} times "
+                                   f"a request, expected once a sweep ({sweeps})")
         log(f"export {name}", input_mode=mode, batch=BATCH, export_s=f"{ref['export_s']:.2f}",
             artifact_mb=f"{ref['mb']:.1f}", load_s=f"{got['load_s']:.2f}",
             loaded_program_ms=f"{got['program_ms']:.3f}", live_predict_ms=f"{ref['ms']:.3f}",
@@ -2106,12 +2169,13 @@ def ranks_hold_equal(model, group) -> bool:
     return bool(same.item())
 
 
-def tiny_distill(dev, tiny, group, n_steps=1):
+def tiny_distill(dev, tiny, group, n_steps=1, spatial=None):
     """`n_steps` tiny float32 camera<-LiDAR distill steps (student tamed)
     on `dev` over `group` (None: one process) on `tiny`'s batch (this
-    rank's rows where `group` has two ranks). Returns the host metrics of
-    each step, the last step's averaged gradients before the clip, and the
-    parameters' change, on the CPU."""
+    rank's rows where `group` has two ranks), or through the spatial step
+    over the `parallel.mesh.SpatialGroups` `spatial`. Returns the host
+    metrics of each step, the last step's averaged gradients before the
+    clip, and the parameters' change, on the CPU."""
     from unidistill_torch.configs.nuscenes import DISTILL_VARIANTS
     from unidistill_torch.models.bevfusion import BEVFusionCenterHead
     from unidistill_torch.training import steps
@@ -2128,9 +2192,15 @@ def tiny_distill(dev, tiny, group, n_steps=1):
     opt = make_optimizer(student, train_cfg)
     state = TrainState()
     batch = to_device(batch, dev)
-    host = [steps.metrics_to_host(steps.distill_train_step(state, batch, student, teacher, opt, s_cfg, t_cfg,
-                                                           DISTILL_VARIANTS[("lidar", "camera")], group))
-            for _ in range(n_steps)]
+    dcfg = DISTILL_VARIANTS[("lidar", "camera")]
+    if spatial is None:
+        step = lambda: steps.distill_train_step(state, batch, student, teacher, opt, s_cfg, t_cfg,  # noqa: E731
+                                                dcfg, group)
+    else:
+        from unidistill_torch.parallel.spatial import distill_train_step_spatial
+        step = lambda: distill_train_step_spatial(state, batch, student, teacher, opt, s_cfg, t_cfg,  # noqa: E731
+                                                  dcfg, spatial)
+    host = [steps.metrics_to_host(step()) for _ in range(n_steps)]
     unclip = max(1.0, host[-1]["grad_norm"] / opt.grad_clip)  # .grad holds the clipped average
     grads = {k: (p.grad * unclip).cpu() for k, p in student.named_parameters()}
     change = {k: p.detach().cpu() - start[k] for k, p in student.named_parameters()}
@@ -2289,6 +2359,280 @@ def ddp_phases(dev, batch_np, teacher_sd) -> None:
     if written:
         raise RuntimeError(f"{phase}: files written under the repository: {written[:10]}")
     log("ddp", wall_seconds=f"{time.time() - t_phase:.2f}")
+
+
+def spatial_rank(rank, batch_np, teacher_sd, out_dir, tiny):
+    """One rank of [spatial distill lidar->camera] and [spatial tiny], in a
+    process of a gloo world on the one card (`parallel.launch.run_ranks`):
+    one dp shard of SPATIAL_BEV bev peers, each with the whole batch."""
+    import torch.distributed as dist
+    from unidistill_torch.configs.nuscenes import DISTILL_VARIANTS, apply_overrides, distill_exp, lidar_exp
+    from unidistill_torch.kernels import build
+    from unidistill_torch.models.bevfusion import BEVFusionCenterHead
+    from unidistill_torch.training.loop import Trainer
+    from unidistill_torch.training.steps import metrics_to_host
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.time()
+
+    # ---- the camera student at full width, through the Trainer's spatial step ----
+    pair = ("lidar", "camera")
+    exp = apply_overrides(distill_exp(*pair), {"train.spatial_bev": SPATIAL_BEV})
+    trainer = Trainer(exp, output_dir=out_dir, device="cuda")  # joins the gloo world
+    dev, group, sp = trainer.device, trainer.group, trainer.spatial
+    if sp is None or (sp.dp_size, sp.bev_size, sp.bev_rank) != (1, SPATIAL_BEV, rank):
+        raise RuntimeError(f"rank {rank}: the trainer's spatial groups are {sp}")
+    t_cfg = lidar_exp().model
+    teacher = BEVFusionCenterHead(t_cfg)
+    teacher.load_state_dict(tensor_sd(teacher_sd))
+    teacher.to(dev).requires_grad_(False).eval()
+    batch = to_device(batch_np, dev)  # dp = 1: every rank loads the whole global batch
+    state = trainer.init_state(steps_per_epoch=1)
+    step = lambda: trainer.train_step(state, batch, (teacher, t_cfg, DISTILL_VARIANTS[pair]))  # noqa: E731
+    first = metrics_to_host(step())  # from the initial weights: its loss is checked
+    equal = [ranks_hold_equal(trainer.model, group)]
+    torch.cuda.synchronize()
+    build.reset_launches()
+    times, host, peaks = [], [], []
+    # calls and host seconds of the step's collectives; the all-gathers split
+    # by the bytes a rank sends: a block of the whole map or a halo
+    collectives = {"all_reduce": [0, 0.0], "all_gather_map": [0, 0.0], "all_gather_halo": [0, 0.0]}
+    plain = {name: getattr(dist, name) for name in ("all_reduce", "all_gather")}
+
+    def timed(name):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = plain[name](*args, **kwargs)
+            if name == "all_gather":  # (outputs, input)
+                x = args[1]
+                name_ = "all_gather_map" if x.shape[2] > 2 else "all_gather_halo"
+            else:
+                name_ = name
+            collectives[name_][0] += 1
+            collectives[name_][1] += time.perf_counter() - t0
+            return out
+        return call
+
+    for _ in range(TIMED_STEPS):
+        dist.barrier(group=group)
+        torch.cuda.reset_peak_memory_stats()
+        for name in plain:  # the step's own collectives, timed on the host
+            setattr(dist, name, timed(name))
+        t0 = time.perf_counter()
+        try:
+            host.append(metrics_to_host(step()))  # the one read-back of a step
+        finally:
+            for name, fn in plain.items():
+                setattr(dist, name, fn)
+        times.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        equal.append(ranks_hold_equal(trainer.model, group))
+    launches = dict(build.LAUNCHES)
+    if teacher.training or any(p.grad is not None for p in teacher.parameters()):
+        raise RuntimeError(f"rank {rank}: the teacher was trained")
+    trainer.close()
+    del trainer, teacher, batch, state, step
+    torch.cuda.empty_cache()
+    full = dict(first=first, times=times, peak_gib=max(peaks), launches=launches, equal=equal, host=host,
+                collectives={k: (n / TIMED_STEPS, s / TIMED_STEPS) for k, (n, s) in collectives.items()},
+                seconds=time.time() - t_phase)
+
+    # ---- tiny: the same spatial step on the card and on the CPU ----------------
+    from unidistill_torch.parallel.mesh import spatial_groups
+    t0 = time.time()
+    groups = spatial_groups(group, SPATIAL_BEV)
+    args = tuple(tiny[k] for k in ("s_cfg", "t_cfg", "s_sd", "t_sd", "batch", "train_cfg"))
+    cpu = tiny_distill(torch.device("cpu"), args, None, spatial=groups)
+    card = tiny_distill(dev, args, None, spatial=groups)
+    worst = card_vs_cpu_step(cpu, card, tiny["train_cfg"].lr)
+    return dict(full=full, tiny=dict(worst=worst, loss_cpu=cpu[0][-1]["loss"], loss_card=card[0][-1]["loss"],
+                                     seconds=time.time() - t0))
+
+
+def spatial_phases(dev, batch_np, teacher_sd) -> None:
+    """[spatial distill lidar->camera] and [spatial tiny]: the camera<-LiDAR
+    step through the Trainer's spatial path (`train.spatial_bev` =
+    SPATIAL_BEV) on SPATIAL_BEV gloo ranks of the one card, against the
+    one-process step on the same batch and weights."""
+    import dataclasses
+    import tempfile
+    from unidistill_torch.configs.nuscenes import DISTILL_VARIANTS, distill_exp, lidar_exp, tiny_model
+    from unidistill_torch.models.bevfusion import BEVFusionCenterHead
+    from unidistill_torch.parallel.launch import run_ranks
+    from unidistill_torch.serving.synthetic import random_state_dict, train_batch
+    from unidistill_torch.training.loop import init_params
+    from unidistill_torch.training.steps import distill_train_step, metrics_to_host
+    from unidistill_torch.training.train_state import TrainState, make_optimizer
+
+    phase = "spatial distill lidar->camera"
+    t_phase = time.time()
+    # the one-process step from the weights a Trainer starts from
+    pair = ("lidar", "camera")
+    exp = distill_exp(*pair)
+    student = init_params(BEVFusionCenterHead(exp.model), exp.train.seed).to(dev)
+    teacher = BEVFusionCenterHead(lidar_exp().model)
+    teacher.load_state_dict(teacher_sd)
+    teacher.to(dev).requires_grad_(False)
+    ref = metrics_to_host(distill_train_step(TrainState(), to_device(batch_np, dev), student, teacher,
+                                             make_optimizer(student, exp.train, 1), exp.model, lidar_exp().model,
+                                             DISTILL_VARIANTS[pair]))
+    del student, teacher
+    torch.cuda.empty_cache()
+
+    s_tiny = dataclasses.replace(tiny_model(with_lidar=False), compute_dtype="float32")
+    t_tiny = dataclasses.replace(tiny_model(with_camera=False), compute_dtype="float32")
+    tiny = dict(s_cfg=s_tiny, t_cfg=t_tiny, s_sd=numpy_sd(random_state_dict(s_tiny, seed=2)),
+                t_sd=numpy_sd(random_state_dict(t_tiny, seed=12)), batch=train_batch(s_tiny, t_tiny, BATCH, seed=25),
+                train_cfg=exp.train)
+    before = repo_files()
+    with tempfile.TemporaryDirectory(prefix="unidistill_spatial_") as tmp:
+        got = run_ranks(spatial_rank, SPATIAL_BEV, (batch_np, numpy_sd(teacher_sd), tmp, tiny),
+                        ranks_per_card=SPATIAL_BEV, timeout_s=DDP_TIMEOUT_S)
+    wall = time.time() - t_phase
+    want = dict(bev_pool_fwd=1, bev_pool_bwd=1, sparse_conv_fwd=SPARSE_CONVS_PER_REQUEST)
+    full = [g["full"] for g in got]
+    for r, f in enumerate(full):
+        for k, n in want.items():
+            if f["launches"].get(k, 0) != n * TIMED_STEPS:
+                raise RuntimeError(f"{phase}: rank {r} launched {k} {f['launches'].get(k, 0)} times in "
+                                   f"{TIMED_STEPS} steps, expected {n} a step")
+        if not all(f["equal"]):
+            raise RuntimeError(f"{phase}: the ranks' parameters differ after steps {f['equal']}")
+        for h in [f["first"]] + f["host"]:
+            bad = [k for k, v in h.items() if not math.isfinite(v)]
+            if bad:
+                raise RuntimeError(f"{phase}: rank {r} non-finite metrics {bad}")
+        if [h["loss"] for h in [f["first"]] + f["host"]] != [h["loss"] for h in [full[0]["first"]] + full[0]["host"]]:
+            raise RuntimeError(f"{phase}: rank {r}'s losses differ from rank 0's")
+    loss_err = abs(full[0]["first"]["loss"] - ref["loss"]) / abs(ref["loss"])
+    if loss_err > SPATIAL_LOSS_RTOL_BF16:
+        raise RuntimeError(f"{phase}: the first step's loss {full[0]['first']['loss']} is {loss_err:.3e} "
+                           f"from the one-process step's {ref['loss']}")
+    times = full[0]["times"]
+    terms = {k: v for k, v in full[0]["host"][-1].items() if not k.startswith("task_")}
+    log(phase, ranks=SPATIAL_BEV, backend="gloo", dp=1, bev=SPATIAL_BEV, bev_rows=[45, 45], batch=BATCH,
+        steps=TIMED_STEPS, s_per_step=[round(t, 4) for t in times],
+        frames_per_s=f"{BATCH * len(times) / sum(times):.3f}",
+        peak_mem_gib_per_rank=[round(f["peak_gib"], 3) for f in full],
+        launches_per_rank=json.dumps([f["launches"] for f in full], sort_keys=True),
+        params_bit_equal_after_each_step="true", first_loss=f"{full[0]['first']['loss']:.6g}",
+        one_process_loss=f"{ref['loss']:.6g}", first_loss_rel_err=f"{loss_err:.3e}",
+        tol=SPATIAL_LOSS_RTOL_BF16, **{k: f"{v:.6g}" for k, v in sorted(terms.items())})
+    log(phase, rank_seconds=[round(f["seconds"], 2) for f in full], wall_seconds=f"{wall:.2f}",
+        collectives_per_step_per_rank=json.dumps([{k: int(n) for k, (n, _) in f["collectives"].items()}
+                                                  for f in full], sort_keys=True),
+        collective_host_s_per_step_per_rank=json.dumps(
+            [{k: round(t, 4) for k, (_, t) in f["collectives"].items()} for f in full], sort_keys=True),
+        smi=repr(nvidia_smi_line()))
+
+    worst = [max(w) for w in zip(*(g["tiny"]["worst"] for g in got))]
+    log("spatial tiny", ranks=SPATIAL_BEV, loss_cpu=f"{got[0]['tiny']['loss_cpu']:.6g}",
+        loss_card=f"{got[0]['tiny']['loss_card']:.6g}", metrics_rel_err=f"{worst[0]:.3e}",
+        worst_grad_err_over_scale=f"{worst[1]:.3e}", change_err_over_lr=f"{worst[2]:.3e}",
+        flip_change_over_lr=f"{worst[3]:.3e}", tol=(TRAIN_TINY_LOSS_RTOL, TRAIN_TINY_GRAD_TOL, 1e-2, 2.0),
+        seconds=[round(g["tiny"]["seconds"], 2) for g in got])
+    if (worst[0] > TRAIN_TINY_LOSS_RTOL or worst[1] > TRAIN_TINY_GRAD_TOL or worst[2] > 1e-2
+            or worst[3] > 2.0):
+        raise RuntimeError(f"spatial tiny: card vs CPU {worst} beyond the tolerances")
+    written = sorted(set(repo_files().items()) - set(before.items()))
+    if written:
+        raise RuntimeError(f"{phase}: files written under the repository: {written[:10]}")
+
+
+def native_phase() -> None:
+    """[native]: the host C++ library (`data/native.py`), built with this
+    machine's compiler, against its plain versions on one full-width frame
+    of `serving.synthetic.write_nuscenes` (a 10-sweep cloud, six 900x1600
+    JPEGs); host ms of each (one call, after one warm-up call) beside its
+    plain version's."""
+    import tempfile
+    from unidistill_torch.configs.nuscenes import fusion_exp
+    from unidistill_torch.data import native, transforms as T
+    from unidistill_torch.data.dataset import NuScenesDataset
+    from unidistill_torch.kernels import build
+    from unidistill_torch.serving.synthetic import write_nuscenes
+
+    t_phase = time.time()
+    t0 = time.time()
+    fresh = not build.host_library_path().exists()
+    native.available()
+    build_s = time.time() - t0
+    cxx = subprocess.run([build._host_compiler(), "--version"], capture_output=True, text=True).stdout
+    log("native build", seconds=f"{build_s:.2f}", built=str(fresh).lower(), library=build.host_library_path().name,
+        compiler=repr(cxx.splitlines()[0]), flags=" ".join(build.HOST_FLAGS))
+    exp = fusion_exp()
+    mcfg = exp.model
+    with tempfile.TemporaryDirectory(prefix="unidistill_native_") as tmp:
+        root = write_nuscenes(tmp, 1, 0, NATIVE_SEED)
+        ds = NuScenesDataset(dataclasses.replace(exp.data, root_path=root), mcfg, "training", seed=0)
+        info = ds.infos[0]
+        key = ds._load_points(info)
+        sweeps, sweep_infos = ds._load_sweeps(info)
+        raw = ds._load_images(info)
+    key_l2e, key_e2g = np.linalg.inv(info["ref_from_car"]), np.linalg.inv(info["car_from_global"])
+    mats = [np.linalg.inv(key_l2e) @ np.linalg.inv(key_e2g) @ si["sweep_lidar_to_ego"] @ key_l2e
+            for si in sweep_infos]
+    dts = [(info["timestamp"] - si["sweep_lidar_timestamp"]) / 1e6 for si in sweep_infos]
+    cloud = T.collect_lidar_sweeps(key, sweeps, key_l2e, key_e2g, info["timestamp"], sweep_infos)
+    caps, pcr = mcfg.caps, mcfg.point_cloud_range
+    _, coords = native.voxelize_mean_sorted_native(cloud, pcr, mcfg.voxel_size, mcfg.grid_size,
+                                                   caps.max_voxels_train, caps.max_points_per_voxel)
+    gt = np.asarray(info["gt_boxes"], np.float32)
+    imgs = [raw[c] for c in raw]
+    norm = (exp.data.img_mean, exp.data.img_std, exp.data.to_rgb)
+    vox = native.HostVoxelizer(pcr, mcfg.voxel_size, mcfg.grid_size, caps.max_voxels_train,
+                               caps.max_points_per_voxel)
+    topo = (coords, mcfg.grid_size, mcfg.lidar_encoder.stage_voxel_caps, mcfg.lidar_encoder.s0_slot_cap)
+    cases = {
+        "transform_points": (lambda fn: [fn(sw.copy(), m, dt) for sw, m, dt in zip(sweeps, mats, dts)],
+                             native.transform_points, native.transform_points_plain),
+        "range_filter_pad": (lambda fn: fn(cloud, pcr, caps.max_points),
+                             native.range_filter_pad, native.range_filter_pad_plain),
+        "points_in_rbbox": (lambda fn: fn(cloud, gt), native.points_in_rbbox, native.points_in_rbbox_plain),
+        "HostVoxelizer": (lambda fn: fn(cloud), vox, vox.plain),
+        "voxelize_mean_sorted_native": (
+            lambda fn: fn(cloud, pcr, mcfg.voxel_size, mcfg.grid_size, caps.max_voxels_train,
+                          caps.max_points_per_voxel),
+            native.voxelize_mean_sorted_native, native.voxelize_mean_sorted_plain),
+        "plan_frame_topology_native": (lambda fn: fn(*topo[:3], s0_cap=topo[3]),
+                                       native.plan_frame_topology_native, native.plan_frame_topology_plain),
+        "normalize_image": (lambda fn: [fn(im, *norm) for im in imgs], native.normalize_image,
+                            native.normalize_image_plain),
+    }
+
+    def leaves(x):
+        if isinstance(x, dict):
+            return [x[k] for k in sorted(x)]
+        if isinstance(x, (list, tuple)):
+            return [y for v in x for y in leaves(v)]
+        return [np.asarray(x)]
+
+    for name, (call, fast, plain) in cases.items():
+        call(fast)
+        t0 = time.perf_counter()
+        got = call(fast)
+        ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ref = call(plain)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if isinstance(got, dict):  # the library also builds the backward's reverse tables
+            got = {k: v for k, v in got.items() if k in ref}
+        g, r = leaves(got), leaves(ref)
+        if len(g) != len(r) or any(a.shape != b.shape for a, b in zip(g, r)):
+            raise RuntimeError(f"[native {name}] the outputs' shapes differ")
+        err = 0.0
+        for a, b in zip(g, r):
+            if a.dtype.kind == "f":
+                err = max(err, float(np.abs(a.astype(np.float64) - b).max(initial=0.0))
+                          / max(1.0, float(np.abs(b).max(initial=0.0))))
+            elif not np.array_equal(a, b):
+                raise RuntimeError(f"[native {name}] integer or boolean outputs differ from the plain version's")
+        if err > NATIVE_TOL_OF_MAX:
+            raise RuntimeError(f"[native {name}] {err:.3e} of max from the plain version")
+        log(f"native {name}", ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}", speedup=f"{plain_ms / ms:.2f}",
+            err_of_max=f"{err:.3e}", tol=NATIVE_TOL_OF_MAX)
+    log("native", points=len(cloud), sweeps=len(sweeps), images=len(imgs), image_hw=list(imgs[0].shape[:2]),
+        voxels=int((coords[:, 0] >= 0).sum()), seconds=f"{time.time() - t_phase:.2f}")
 
 
 def ddp_nccl_phase(dev, tiny) -> None:
@@ -2621,9 +2965,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     flops_phase(dev, *distill_inputs)
     torch.cuda.empty_cache()
+    native_phase()
     cli_phases(dev)
     torch.cuda.empty_cache()
     ddp_phases(dev, *distill_inputs)
+    torch.cuda.empty_cache()
+    spatial_phases(dev, *distill_inputs)
     torch.cuda.empty_cache()
     microbench_phases(dev, table)
 

@@ -3,13 +3,14 @@ on the host; no JAX step is compiled).
 
 Frames come from the synthetic on-disk mini-nuScenes of
 `tests/test_data_pipeline.py` at `tiny_model`, training and validation
-splits, same seed. With the JAX package's C++ point library switched off
-(its numpy path), every array of a frame equals the JAX one exactly but the
-voxel features, whose means sum float32 points in another order (JAX: a
-float64 cumsum) and agree to 1e-6; with the library on (the JAX default
-where it is built), points and images agree to 1e-6 (the library
-transforms in its own rounding and multiplies by 1/std) and the integers
-stay exact. The JAX frames' `topo_*` planner tables have no counterpart.
+splits, same seed. With both C++ point libraries switched off (the JAX
+package's numpy path; the port's plain versions, `_no_native`), every array
+of a frame equals the JAX one exactly but the voxel features, whose means
+sum float32 points in another order (JAX: a float64 cumsum) and agree to
+1e-6; with both on (each loader's default: the port's library is its own
+copy of the JAX one's sources, built with the same flags), every array
+equals the JAX one exactly. The JAX frames' `topo_*` planner tables have no
+counterpart.
 """
 import copy
 import itertools
@@ -32,6 +33,7 @@ from unidistill_tpu.data.transforms import normalize_image as jax_normalize_imag
 
 from unidistill_torch.configs.nuscenes import CLASS_NAMES, DataConfig, tiny_model
 from unidistill_torch.data import detection_eval as port_eval
+from unidistill_torch.data import native as port_native
 from unidistill_torch.data.collate import DataLoader
 from unidistill_torch.data.dataset import NuScenesDataset
 from unidistill_torch.data.evaluate import generate_submission
@@ -70,7 +72,13 @@ def _datasets(root, split, seed=0, sweeps=2, cbgs=True):
 
 
 def _no_native(monkeypatch):
+    """Both loaders on their numpy paths: the JAX package's library off, and
+    each of the port's library functions replaced by its plain version
+    (the port has no switch: its loader always runs the library)."""
     monkeypatch.setattr(jax_native, "_load", lambda: None)
+    for name in ("transform_points", "normalize_image", "plan_frame_topology_native"):
+        monkeypatch.setattr(port_native, name, getattr(port_native, name.replace("_native", "") + "_plain"))
+    monkeypatch.setattr(port_native, "voxelize_mean_sorted_native", port_native.voxelize_mean_sorted_plain)
 
 
 def assert_frames_equal(pf, jf, native=False):
@@ -85,11 +93,8 @@ def assert_frames_equal(pf, jf, native=False):
             assert set(pv) == set(jv)
             for mk in jv:
                 np.testing.assert_array_equal(pv[mk], jv[mk], err_msg=mk)
-        elif k == "voxel_feats":
+        elif k == "voxel_feats" and not native:
             np.testing.assert_allclose(pv, jv, **VOXEL_FEAT_TOL)
-        elif native and k in ("points", "imgs"):
-            assert pv.dtype == jv.dtype and pv.shape == jv.shape
-            np.testing.assert_allclose(pv, jv, **NATIVE_TOL, err_msg=k)
         else:
             assert pv.dtype == jv.dtype, k
             np.testing.assert_array_equal(pv, jv, err_msg=k)
@@ -143,10 +148,12 @@ def test_normalize_image_matches_both_jax_paths():
             np.testing.assert_allclose(got, jax_native.normalize_image(img, mean, std, swap), **NATIVE_TOL)
 
 
-def _batches_equal(pb, jb):
+def _batches_equal(pb, jb, native=False):
+    """With `native` (both loaders on their C++ libraries) the voxel
+    features too are exact."""
     assert set(pb) == {k for k in jb if not k.startswith("topo_")}
     assert [m["token"] for m in pb["meta"]] == [m["token"] for m in jb["meta"]]
-    for k in ("points", "points_mask", "imgs", "gt_boxes", "voxel_coords"):
+    for k in ("points", "points_mask", "imgs", "gt_boxes", "voxel_coords") + (("voxel_feats",) if native else ()):
         np.testing.assert_array_equal(pb[k], jb[k], err_msg=k)
     np.testing.assert_allclose(pb["voxel_feats"], jb["voxel_feats"], **VOXEL_FEAT_TOL)
     for mk in jb["mats"]:

@@ -1,8 +1,12 @@
 """The port stands alone: it imports neither JAX nor the JAX package nor the
 JAX experiment scripts (`experiments/`, whose microbenchmarks the port
-carries as `unidistill_torch.experiments`), and its own copy of the
+carries as `unidistill_torch.experiments`), opens no file of the JAX
+package or its C++ runtime (`unidistill_tpu/`, `runtime/`) and loads no
+library but those it builds from its own sources, and its own copy of the
 configuration equals the JAX one field for field."""
 import dataclasses
+import json
+import os
 import re
 import subprocess
 import sys
@@ -37,6 +41,49 @@ def test_importing_the_port_pulls_in_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
     assert n_modules >= 71, res.stdout  # the training, data, CLI, microbenchmark and leaf modules included
+
+
+def test_the_loader_touches_only_the_ports_own_files(tmp_path):
+    """A fresh process imports every module of the port, builds the host
+    library and loads frames of the synthetic mini-nuScenes through the
+    port's loader, under an audit hook: no file under `unidistill_tpu/` or
+    `runtime/` is opened, and every library loaded from the checkout is
+    the port's host library, built from `unidistill_torch/csrc/host/`."""
+    from tests.test_data_pipeline import build_synth_nusc  # the JAX package's test helper
+
+    root = build_synth_nusc(tmp_path / "nusc", 2)
+    code = (
+        "import sys\n"
+        "opened, loaded = [], []\n"
+        "def hook(event, args):\n"
+        "    if event == 'open' and isinstance(args[0], (str, bytes)):\n"
+        "        opened.append(str(args[0]))\n"
+        "    elif event == 'ctypes.dlopen':\n"
+        "        loaded.append(str(args[0]))\n"
+        "sys.addaudithook(hook)\n"
+        "import importlib, json, os, pkgutil\n"
+        "import unidistill_torch\n"
+        "for m in pkgutil.walk_packages(unidistill_torch.__path__, 'unidistill_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from unidistill_torch.configs.nuscenes import DataConfig, tiny_model\n"
+        "from unidistill_torch.data.collate import DataLoader\n"
+        "from unidistill_torch.data.dataset import NuScenesDataset\n"
+        "from unidistill_torch.kernels.build import host_library_path\n"
+        f"ds = NuScenesDataset(DataConfig(root_path={str(root)!r}, num_lidar_sweeps=2), tiny_model(), 'training')\n"
+        "batches = list(DataLoader(ds, 2))\n"
+        "print(json.dumps(dict(opened=[os.path.realpath(p) for p in opened],\n"
+        "                      loaded=[os.path.realpath(p) for p in loaded if os.sep in p],\n"
+        "                      host=str(host_library_path()), n=len(batches))))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["n"] == 1
+    jax_dirs = (str(ROOT / "unidistill_tpu") + os.sep, str(ROOT / "runtime") + os.sep)
+    assert not [p for p in out["opened"] if p.startswith(jax_dirs)]
+    assert any(p.startswith(str(ROOT / "unidistill_torch" / "csrc" / "host")) for p in out["opened"])
+    ours = [p for p in out["loaded"] if p.startswith(str(ROOT) + os.sep)]
+    assert ours == [out["host"]]
 
 
 def _sources():

@@ -20,8 +20,13 @@ empty batch collates to `{}`). Each rank's dataset keeps its own generator:
 the augmentations of rank r > 0 are drawn from (seed, rank), in the loader
 process or in each worker, so that no two ranks draw the same numbers.
 
+Spatial sharding (`train.spatial_bev` > 1) gives the loader the dp shard
+as its `rank` and the number of shards as its `world_size`: the bev peers
+of a shard load the same rows and draw the same augmentations.
+
 With workers, each worker process reseeds the dataset's generator from
-`torch.initial_seed()` (the loader's base seed plus the worker's id) once,
+`torch.initial_seed()` (the loader's base seed, drawn from a generator
+seeded with `seed`, plus the worker's id) once,
 when it starts; the workers persist across epochs, and their generators
 run on from one epoch to the next. The JAX
 loader pickles the dataset, generator included, into every task of its pool
@@ -30,7 +35,9 @@ every batch draws the same augmentation (IDA, BDA, the empty-GT resample);
 the port does not copy that. Workers start by `spawn`: the loader runs in a
 process that may hold a CUDA context and PyTorch's thread pools, which a
 forked child must not inherit. A worker touches no CUDA and runs one
-intra-op thread (its frame's voxeliser runs on the CPU).
+intra-op thread; its frames' host work runs in the C++ library
+(`data/native.py`), which this process builds before the workers start,
+so that they only load it.
 """
 from __future__ import annotations
 
@@ -39,6 +46,8 @@ from typing import Dict, Iterator, List
 
 import numpy as np
 import torch
+
+from unidistill_torch.data import native
 
 
 def collate(frames: List[Dict]) -> Dict:
@@ -108,8 +117,10 @@ def DataLoader(dataset, batch_size: int, shuffle: bool = False, drop_last: bool 
     ranks."""
     if rank and num_workers == 0:
         dataset.rng = _rank_rng(seed, rank)
+    if num_workers > 0:  # the workers load the host library this process builds
+        native.available()
     workers = dict(worker_init_fn=functools.partial(_init_worker, rank=rank), multiprocessing_context="spawn",
                    persistent_workers=True) if num_workers > 0 else {}
     return torch.utils.data.DataLoader(
         dataset, batch_sampler=BatchOrder(len(dataset), batch_size, shuffle, drop_last, seed, rank, world_size),
-        collate_fn=collate, num_workers=num_workers, **workers)
+        collate_fn=collate, num_workers=num_workers, generator=torch.Generator().manual_seed(seed), **workers)

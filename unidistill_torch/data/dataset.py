@@ -11,6 +11,8 @@ nuscenes_multimodal.py:45-415}. As in the JAX package:
     appends `gt_labels + 1` inside training_step, …base_exp.py:372-373);
   * configurable root path instead of the reference's hard-coded
     /data/dataset.
+The sweeps' transform, the image normalisation and the voxeliser run in the
+host C++ library (`data/native.py`), where the JAX loader runs them.
 A LiDAR frame is voxelised here, on the CPU, at the split's voxel cap
 (`ops.voxelize.voxelize_frame`): the train and distill steps take the
 loader's `voxel_feats` / `voxel_coords`, as the JAX steps do. No sparse
@@ -27,7 +29,7 @@ import numpy as np
 from PIL import Image
 
 from unidistill_torch.configs.nuscenes import CLASS_NAMES, DataConfig, ModelConfig
-from unidistill_torch.data import transforms as T
+from unidistill_torch.data import native, transforms as T
 from unidistill_torch.ops.voxelize import voxelize_frame
 
 # nuScenes general category → 10 detection classes (ref nuScenes_multimodal.py:13-37)
@@ -228,7 +230,7 @@ class NuScenesDataset:
                 )
                 img, ida = T.img_transform(Image.fromarray(raw[cam]), *aug)
                 imgs.append(
-                    T.normalize_image(np.asarray(img), cfg.img_mean,
+                    native.normalize_image(np.asarray(img), cfg.img_mean,
                                       cfg.img_std, swap_channels=cfg.to_rgb)
                 )
                 ida_mats.append(ida)

@@ -1,10 +1,11 @@
 """Host-side topology planner for the chunked sparse-conv layout, in numpy.
 
 Counterpart of the JAX package's `data/topology_host.py`
-(`plan_frame_topology_numpy` and its helpers), without the native C++
-dispatch and without the backward's reverse tables (`_rev_tables`, which
-only the chunked layout's backward reads; the port does not run that
-backward). Layout and packing are the JAX ones (`ops/sparse_conv_chunked.py`
+(`plan_frame_topology`, which dispatches to the host C++ planner of
+`data/native.py` as the JAX one does, and its numpy spec
+`plan_frame_topology_numpy` with its helpers), without the backward's
+reverse tables (`_rev_tables`, which only the chunked layout's backward
+reads; the port does not run that backward). Layout and packing are the JAX ones (`ops/sparse_conv_chunked.py`
 here): a *slot* is an occupied (BEV column, z-chunk of 4) cell, slots sorted
 by (column key y·W + x, chunk); per stage the planner gives the slot
 skeleton and integer gather tables, from the voxel coordinates alone.
@@ -17,6 +18,8 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import numpy as np
+
+from unidistill_torch.data import native
 
 CHUNK = 4
 _PC = np.array([bin(i).count("1") for i in range(1 << 16)], np.int32)
@@ -267,7 +270,24 @@ def plan_frame_topology(
     stage_caps,
     s0_cap: int | None = None,
 ) -> Dict[str, np.ndarray]:
-    """One frame's chunked-encoder topology (stages s0, s2, s3).
+    """One frame's chunked-encoder topology by the host C++ planner
+    (`data.native.plan_frame_topology_native`, the JAX package's dispatch),
+    integer-equal to `plan_frame_topology_numpy` and with its keys (the
+    reverse tables the library also builds are dropped)."""
+    out = native.plan_frame_topology_native(coords, grid_size, stage_caps, s0_cap=s0_cap)
+    out.pop("rev2")
+    out.pop("rev3")
+    return out
+
+
+def plan_frame_topology_numpy(
+    coords: np.ndarray,
+    grid_size,
+    stage_caps,
+    s0_cap: int | None = None,
+) -> Dict[str, np.ndarray]:
+    """One frame's chunked-encoder topology (stages s0, s2, s3), in numpy
+    (the plain version of `plan_frame_topology`).
 
     coords: [V, 3] int32 (z, y, x), -1 padding, key-sorted (the voxeliser's
     order); stage_caps: `lidar_encoder.stage_voxel_caps` (S2, S3, ...);

@@ -1,7 +1,7 @@
 """Host-side data transforms, numpy + PIL; the port's copy of the JAX
-package's `data/transforms.py`, numpy path only (the JAX package may hand
-the sweep transform and the image normalisation to a C++ library,
-`data/native.py`; the port does not).
+package's `data/transforms.py`. As there, the sweeps' transform runs in the
+host C++ library (`data/native.py`); `normalize_image` here is the numpy
+version (the dataset calls `native.normalize_image`).
 
 ref unidistill/data/multisensorfusion/transforms3d.py and functional.py:
   * CollectLidarSweeps — ego-motion chain of 10 sweeps into the key frame with
@@ -27,6 +27,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 from PIL import Image
+
+from unidistill_torch.data import native
 
 
 def quaternion_rotation_matrix(q) -> np.ndarray:
@@ -68,11 +70,12 @@ def collect_lidar_sweeps(
         m = inv_key_l2e @ inv_key_e2g @ info["sweep_lidar_to_ego"] @ key_lidar_to_ego
         dt = (key_timestamp - info["sweep_lidar_timestamp"]) / 1e6
         frame = np.array(frame, np.float32)
+        if frame.shape[-1] == 5:
+            out.append(native.transform_points(frame, m, dt))
+            continue
         hom = np.ones((frame.shape[0], 4))
         hom[:, :3] = frame[:, :3]
         frame[:, :3] = (m @ hom.T).T[:, :3].astype(np.float32)
-        if frame.shape[-1] == 5:
-            frame[:, 4] = dt
         out.append(frame)
     return np.concatenate(out, axis=0)
 

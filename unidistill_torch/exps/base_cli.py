@@ -16,7 +16,10 @@ nuscenes_submission/ (-p: the submission and boxes.pkl).
 Over N ranks: `torchrun --nproc_per_node N …_exp.py` (NCCL, a card a rank;
 gloo with --device cpu). Each rank loads `-b` frames of every global batch
 of `-b` × N (the JAX CLI's global batch over its devices); the ranks share
-one output directory, which rank 0 writes.
+one output directory, which rank 0 writes. With `--exp_options
+train.spatial_bev=b` the N ranks are N / b dp shards of b ranks that
+split the BEV grid by rows (`parallel/spatial.py`): each rank loads its
+shard's `-b` frames of every global batch of `-b` × N / b.
 """
 from __future__ import annotations
 
@@ -90,8 +93,8 @@ def make_loader(exp_cfg: cfgs.ExpConfig, model_cfg: cfgs.ModelConfig, split: str
     train = split == "training"
     ds = NuScenesDataset(exp_cfg.data, model_cfg, split, seed=args.seed)
     return ds, DataLoader(ds, exp_cfg.train.batch_size_per_device, shuffle=train, drop_last=train,
-                          num_workers=args.num_workers, seed=args.seed, rank=trainer.rank,
-                          world_size=trainer.world_size)
+                          num_workers=args.num_workers, seed=args.seed, rank=trainer.dp_rank,
+                          world_size=trainer.dp_size)
 
 
 def val_loader(exp_cfg: cfgs.ExpConfig, model_cfg: cfgs.ModelConfig, args, trainer: Trainer):

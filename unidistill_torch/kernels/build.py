@@ -12,11 +12,22 @@ if it is not 0. A build failure raises: there is no fallback.
 
 `LAUNCHES` counts the launches of each kernel: a wrapper adds one where it
 launches its kernel and nowhere else.
+
+The host route: `csrc/host/*.cc` (the data loader's point and image
+preparation and the topology planner, bound by `data/native.py`) compile
+together with the host `c++` (`HOST_FLAGS`, the JAX package's
+`runtime/Makefile` flags) into `build/unidistill_torch/libhostprep-<hash>.so`
+at first use (`host_library`). The hash covers the sources, the flags, the
+compiler's version and the CPU's model and flags (`-march=native` code
+must not run on another CPU). Concurrent builders (test workers, ranks,
+loader workers) serialise on a lock file; each writes a temporary name and
+renames it. A build or load failure raises.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -79,6 +90,62 @@ SIGNATURES = {
         "band_gather_onehot": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
 }
+
+
+HOST_DIR = CSRC / "host"
+HOST_SOURCES = ("pointprep", "topology")
+HOST_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17", "-Wall")
+_HOST_LIB: Dict[str, ctypes.CDLL] = {}
+
+
+def _cpu_identity() -> bytes:
+    """The CPU's model name and feature flags, as /proc/cpuinfo gives them."""
+    try:
+        lines = Path("/proc/cpuinfo").read_text().splitlines()
+    except OSError:
+        return b""
+    keep = [ln for ln in lines if ln.startswith(("model name", "flags", "Features"))]
+    return "\n".join(dict.fromkeys(keep)).encode()
+
+
+def _host_compiler() -> str:
+    cxx = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
+    if not cxx:
+        raise RuntimeError("no host C++ compiler (c++) found: the host library cannot be built")
+    return cxx
+
+
+def host_library_path() -> Path:
+    cxx = _host_compiler()
+    version = subprocess.run([cxx, "--version"], capture_output=True, text=True, check=True).stdout
+    h = hashlib.sha1()
+    for name in HOST_SOURCES:
+        h.update((HOST_DIR / f"{name}.cc").read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode() + version.encode() + _cpu_identity())
+    return BUILD_DIR / f"libhostprep-{h.hexdigest()[:12]}.so"
+
+
+def host_library() -> ctypes.CDLL:
+    """The host library, built first if needed (see the module docstring)."""
+    with _LOCK:
+        lib = _HOST_LIB.get("hostprep")
+        if lib is not None:
+            return lib
+        path = host_library_path()
+        if not path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            with open(BUILD_DIR / "hostprep.lock", "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                if not path.exists():  # another process may have built it meanwhile
+                    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+                    cmd = [_host_compiler(), *HOST_FLAGS, "-o", str(tmp),
+                           *(str(HOST_DIR / f"{n}.cc") for n in HOST_SOURCES)]
+                    proc = subprocess.run(cmd, capture_output=True, text=True)
+                    if proc.returncode != 0:
+                        raise RuntimeError(f"the host library failed to build:\n{' '.join(cmd)}\n{proc.stderr}")
+                    os.replace(tmp, path)
+        lib = _HOST_LIB["hostprep"] = ctypes.CDLL(str(path))
+        return lib
 
 
 def nvcc_path() -> str:

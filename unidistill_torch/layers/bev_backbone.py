@@ -1,7 +1,9 @@
 """SECOND-style dense 2D BEV backbone (NCHW), counterpart of the JAX
 `layers/bev_backbone.py`: per branch one strided 3×3 conv and `layer_nums`
 3×3 convs (BN eps 1e-3, flax momentum 0.99, + ReLU), then a deblock to
-stride 1; the branches are concatenated on channels."""
+stride 1; the branches are concatenated on channels. With `rows` (a
+`parallel.spatial.RowSplit`) it runs on the rank's block of rows, each
+conv with its halo rows."""
 from __future__ import annotations
 
 from typing import Dict, Sequence, Tuple
@@ -19,7 +21,7 @@ class BaseBEVBackbone(nn.Module):
                  upsample_strides: Sequence[float] = (1, 2),
                  num_upsample_filters: Sequence[int] = (256, 256)):
         super().__init__()
-        self.layer_nums = tuple(layer_nums)
+        self.layer_nums, self.layer_strides = tuple(layer_nums), tuple(layer_strides)
         bn = lambda c: BatchNorm(c, eps=1e-3, momentum=0.99)
         cin = in_channels
         for i, (n, s, f) in enumerate(zip(layer_nums, layer_strides, num_filters)):
@@ -38,14 +40,14 @@ class BaseBEVBackbone(nn.Module):
             self.add_module(f"deblock{i}_bn", bn(uf))
             cin = f
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def forward(self, x: torch.Tensor, rows=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         in_h = x.shape[2]
         ups = []
         pyramid = {}
         for i, n in enumerate(self.layer_nums):
             for k in range(n + 1):
-                x = conv_bn_act(getattr(self, f"block{i}_conv{k}"), getattr(self, f"block{i}_bn{k}"), x)
+                x = conv_bn_act(getattr(self, f"block{i}_conv{k}"), getattr(self, f"block{i}_bn{k}"), x, rows=rows)
             pyramid[f"spatial_features_{in_h // x.shape[2]}x"] = x
-            ups.append(conv_bn_act(getattr(self, f"deblock{i}_conv"), getattr(self, f"deblock{i}_bn"), x))
+            ups.append(conv_bn_act(getattr(self, f"deblock{i}_conv"), getattr(self, f"deblock{i}_bn"), x, rows=rows))
         out = torch.cat(ups, dim=1) if len(ups) > 1 else ups[0]
         return out, pyramid

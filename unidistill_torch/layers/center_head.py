@@ -8,6 +8,8 @@ heads branches at once:
     is exactly a grouped conv with groups=G; each branch keeps the first
     `ch` of its o_max outputs. `out_bias` [G·o_max] is added in float32
     after the conv, as the JAX head adds its [G, o_max] bias.
+With `rows` (a `parallel.spatial.RowSplit`) the convs run on the rank's
+block of rows with halos, and the output maps are gathered whole.
 """
 from __future__ import annotations
 
@@ -51,11 +53,13 @@ class CenterHead(nn.Module):
                 bias[g, :ch] = init_bias
         self.out_bias = nn.Parameter(bias.reshape(-1))
 
-    def forward(self, x: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
-        x = conv_bn_act(self.shared_conv, self.shared_bn, x)
-        h = conv_bn_act(self.branches_conv0, self.branches_bn0, x)
-        y = self.out_conv(h).float()
+    def forward(self, x: torch.Tensor, rows=None) -> List[Dict[str, torch.Tensor]]:
+        x = conv_bn_act(self.shared_conv, self.shared_bn, x, rows=rows)
+        h = conv_bn_act(self.branches_conv0, self.branches_bn0, x, rows=rows)
+        y = (self.out_conv(h) if rows is None else rows.conv(self.out_conv, h)).float()
         y = y + self.out_bias.float()[None, :, None, None]
+        if rows is not None:
+            y = rows.gather(y)
         B, _, H, W = y.shape
         y = y.reshape(B, len(self.branches), self.o_max, H, W)
         preds: List[Dict[str, torch.Tensor]] = [dict() for _ in self.tasks]

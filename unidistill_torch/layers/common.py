@@ -13,11 +13,18 @@
     that biased variance, as flax does (torch would use the unbiased one).
     Each instance takes the momentum of the JAX module it mirrors. In eval
     it runs torch's own kernel (cuDNN off), as an exported program does.
+    With `stats_group` set (a process group; the spatial step sets it,
+    `parallel.spatial.global_batch_stats`), training takes its statistics
+    over every rank of the group: Σx, Σx² and the row count all-reduced in
+    float32, then flax's mean(x²) − mean(x)² (`global_batch_norm`); the
+    backward all-reduces Σdy and Σdy·x̂ in turn, so the input gradient is
+    that of one BatchNorm over the whole batch.
   * `conv_bn_act`: conv in the compute dtype, then BN (and ReLU) in float32.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch import nn
 import torch.nn.functional as F
 
@@ -57,8 +64,47 @@ class LayerNorm(nn.LayerNorm):
         return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
 
 
+class _GlobalBatchNorm(torch.autograd.Function):
+    """y = (x − μ)·rsqrt(σ² + eps)·w + b with μ, σ² over every rank of
+    `group`; returns (y, μ, σ²), the statistics without a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, group, eps):
+        C = x.shape[1]
+        dims = [0, *range(2, x.dim())]
+        shape = (1, C) + (1,) * (x.dim() - 2)
+        stats = torch.cat([x.sum(dims), (x * x).sum(dims), x.new_full((1,), x.numel() // C)])
+        dist.all_reduce(stats, group=group)
+        n = stats[2 * C]
+        mean = stats[:C] / n
+        var = (stats[C : 2 * C] / n - mean * mean).clamp_min(0.0)
+        invstd = torch.rsqrt(var + eps)
+        y = (x - mean.view(shape)) * (invstd * weight).view(shape) + bias.view(shape)
+        ctx.save_for_backward(x, weight, mean, invstd, n)
+        ctx.group, ctx.dims, ctx.shape = group, dims, shape
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        dims, shape = ctx.dims, ctx.shape
+        xhat = (x - mean.view(shape)) * invstd.view(shape)
+        gb = gy.sum(dims)
+        gw = (gy * xhat).sum(dims)
+        sums = torch.cat([gb, gw])
+        dist.all_reduce(sums, group=ctx.group)
+        C = gb.numel()
+        sb, sw = sums[:C] / n, sums[C:] / n
+        gx = (gy - sb.view(shape) - xhat * sw.view(shape)) * (weight * invstd).view(shape)
+        return gx, gw, gb, None, None
+
+
 class BatchNorm(nn.modules.batchnorm._BatchNorm):
     """Over the channels of [N, C] or [N, C, H, W]; `momentum` in flax terms."""
+
+    # a process group: training statistics over its ranks (see the module docstring)
+    stats_group = None
 
     def __init__(self, num_features: int, eps: float, momentum: float):
         super().__init__(num_features, eps=eps, momentum=1.0 - momentum)
@@ -83,6 +129,8 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
         self.num_batches_tracked.add_(1)
         # momentum None (used by calibration): the cumulative average
         f = self.momentum if self.momentum is not None else 1.0 / float(self.num_batches_tracked)
+        if self.stats_group is not None:
+            return self.global_batch_norm(x, f)
         # torch updates the statistics it is given inside the op and autograd
         # keeps them, so it gets copies, and the buffers take the result
         mean, var = self.running_mean.clone(), self.running_var.clone()
@@ -96,7 +144,20 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
         return out
 
 
-def conv_bn_act(conv: nn.Module, bn: nn.Module, x: torch.Tensor, relu: bool = True) -> torch.Tensor:
-    """conv in its compute dtype, then BN (and ReLU) in float32."""
-    y = bn(conv(x).float())
+    def global_batch_norm(self, x: torch.Tensor, f: float) -> torch.Tensor:
+        """Training over the ranks of `stats_group`; the running statistics
+        move by f towards the global mean and biased variance, the same on
+        every rank."""
+        y, mean, var = _GlobalBatchNorm.apply(x.float(), self.weight, self.bias, self.stats_group, self.eps)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, f)
+            self.running_var.lerp_(var, f)
+        return y
+
+
+def conv_bn_act(conv: nn.Module, bn: nn.Module, x: torch.Tensor, relu: bool = True, rows=None) -> torch.Tensor:
+    """conv in its compute dtype, then BN (and ReLU) in float32; with `rows`
+    (a `parallel.spatial.RowSplit`), the conv on this rank's block of rows
+    with its halo rows (`RowSplit.conv`)."""
+    y = bn((conv(x) if rows is None else rows.conv(conv, x)).float())
     return F.relu(y) if relu else y

@@ -22,9 +22,17 @@ convolution, the sparse ones included, casts its input and weights to
 `awl_params` and every output stay float32, as in the JAX model.
 The JAX model's `nn.remat` wrappers save TPU memory in training and change
 no math, so they have no counterpart here.
+
+Spatial sharding (`spatial`, the `parallel.mesh.SpatialGroups` of a (dp,
+bev) world; `parallel/spatial.py`): the encoders and the fusion encoder
+(its gate a mean over the whole map) run on the rank's dp shard; the BEV
+backbone and the head run on the rank's block of rows with halos; the head
+maps and `bev_feature` come back whole. `model_output` and `awl_params`,
+which the losses read whole on every bev peer, pass 1/b of their gradient.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
@@ -36,6 +44,7 @@ from unidistill_torch.layers.center_head import CenterHead
 from unidistill_torch.layers.common import BatchNorm, Conv2d, ConvTranspose2d, Linear
 from unidistill_torch.layers.lidar_encoder import LidarEncoder, SubMConv
 from unidistill_torch.layers.lss import LSSFPN
+from unidistill_torch.parallel.spatial import RowSplit, scale_grad
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -105,7 +114,7 @@ class BEVFusionCenterHead(nn.Module):
     def forward(self, voxel_feats: Optional[torch.Tensor] = None,
                 voxel_coords: Optional[torch.Tensor] = None,
                 imgs: Optional[torch.Tensor] = None,
-                mats: Optional[Dict[str, torch.Tensor]] = None) -> Dict:
+                mats: Optional[Dict[str, torch.Tensor]] = None, spatial=None) -> Dict:
         if self.cfg.with_lidar:
             model_output = lidar_out = self.lidar_encoder(voxel_feats, voxel_coords)
         if self.cfg.with_camera:
@@ -116,11 +125,20 @@ class BEVFusionCenterHead(nn.Module):
             model_output = self.camera_encoder(imgs, mats)
         if self.cfg.with_lidar and self.cfg.with_camera:
             model_output = self.fusion_encoder(lidar_out, model_output)
-        bev, _pyramid = self.bev_encoder(model_output)
-        preds = self.det_head(bev)
+        awl = self.awl_params
+        if spatial is None:
+            bev, _pyramid = self.bev_encoder(model_output)
+            preds = self.det_head(bev)
+        else:
+            rows = RowSplit(spatial, model_output.shape[2], math.prod(self.bev_encoder.layer_strides))
+            bev, _pyramid = self.bev_encoder(rows.split(model_output), rows)
+            preds = self.det_head(bev, rows)
+            bev = rows.gather(bev)
+            model_output = scale_grad(model_output, 1.0 / rows.size)
+            awl = scale_grad(awl, 1.0 / rows.size)
         return dict(
             model_output=model_output.float(),
             bev_feature=bev.float(),
             multi_head_features=preds,
-            awl_params=self.awl_params,
+            awl_params=awl,
         )

@@ -21,8 +21,11 @@ Plain PyTorch: the sort, scan and gathers have no TPU kernel behind them in
 the JAX package (they are XLA there). No sum uses atomics, so the result is
 the same from run to run on the card and equals the CPU's bit for bit.
 
-`voxelize_frame` runs it on the CPU for one frame of the data loader, as the
-JAX package's host voxeliser `data/voxelize_host.py::voxelize_frame` does.
+`voxelize_frame` voxelises one frame of the data loader on the host, in
+the C++ library (`data.native.voxelize_mean_sorted_native`), as the JAX
+package's `data/voxelize_host.py::voxelize_frame` does with its library
+(its plain version, `data.native.voxelize_mean_sorted_plain`, is `voxelize`
+on the CPU: the same coordinates, means summed in float32, within 1e-6).
 """
 from __future__ import annotations
 
@@ -30,6 +33,8 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+
+from unidistill_torch.data import native
 
 
 def voxelize(
@@ -93,13 +98,11 @@ def voxelize(
 
 
 def voxelize_frame(points: np.ndarray, mask: np.ndarray, cfg, training: bool):
-    """One frame [P, C] with its mask [P], voxelised on the CPU by
-    `voxelize` at the config's train or eval voxel cap:
+    """One frame [P, C] with its mask [P], voxelised on the host by the C++
+    library at the config's train or eval voxel cap:
     (feats [V, C] f32, coords [V, 3] int32 (z, y, x), -1 on unused slots),
     as the JAX package's `data/voxelize_host.py::voxelize_frame`."""
     caps = cfg.caps
-    feats, coords = voxelize(
-        torch.from_numpy(points)[None], torch.from_numpy(mask)[None], cfg.point_cloud_range,
-        cfg.voxel_size, cfg.grid_size, caps.max_voxels_train if training else caps.max_voxels_eval,
-        caps.max_points_per_voxel)
-    return feats[0].numpy(), coords[0].numpy()
+    return native.voxelize_mean_sorted_native(
+        np.asarray(points)[np.asarray(mask, bool)], cfg.point_cloud_range, cfg.voxel_size, cfg.grid_size,
+        caps.max_voxels_train if training else caps.max_voxels_eval, caps.max_points_per_voxel)

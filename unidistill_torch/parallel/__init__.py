@@ -1,2 +1,2 @@
-"""Data parallelism over ranks; the port's counterpart of the JAX package's
-`parallel/` (its `mesh.py`; the (dp, bev) spatial mesh is not ported)."""
+"""Data parallelism and BEV spatial sharding over ranks; the port's
+counterpart of the JAX package's `parallel/` (`mesh.py`, `spatial.py`)."""

@@ -11,9 +11,14 @@ them, each on its own device with its own rows of the global batch; the
 
 `group` is the process group (`init_from_env`), or None for one process:
 every function is then the identity or a passthrough.
+
+The (dp, bev) layout of the spatial path (`parallel/spatial.py`) splits
+the world into `spatial_groups`: rank r is bev peer r mod b of dp shard
+r // b, as `make_mesh_2d(dp, bev)` lays devices out (row-major).
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 from typing import Any, Iterable, List, Optional, Sequence
@@ -99,19 +104,20 @@ def _buckets(params: Sequence[torch.Tensor]) -> List[List[torch.Tensor]]:
 
 
 @torch.no_grad()
-def average_gradients(params: Iterable[torch.Tensor], group) -> None:
+def average_gradients(params: Iterable[torch.Tensor], group, divisor: Optional[int] = None) -> None:
     """Replace each parameter's gradient by its mean over the ranks of
     `group` (the JAX step's `pmean` of the gradients), in flat bucketed
-    all-reduces, all started before the first is waited on. A parameter
-    without a gradient gets a zero one first, as every leaf has one in JAX.
-    Every rank ends with the same bits. Nothing where `group` is None."""
+    all-reduces, all started before the first is waited on; with `divisor`,
+    by the sum over the ranks divided by it. A parameter without a gradient
+    gets a zero one first, as every leaf has one in JAX. Every rank ends
+    with the same bits. Nothing where `group` is None."""
     if group is None:
         return
     params = list(params)
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    n = dist.get_world_size(group)
+    n = dist.get_world_size(group) if divisor is None else divisor
     pending = []
     for bucket in _buckets(params):
         grads = [p.grad for p in bucket]
@@ -124,6 +130,40 @@ def average_gradients(params: Iterable[torch.Tensor], group) -> None:
         for g in grads:
             g.copy_(flat[offset : offset + g.numel()].view_as(g))
             offset += g.numel()
+
+
+@dataclasses.dataclass(frozen=True)
+class SpatialGroups:
+    """The (dp, bev) split of a world of dp × bev ranks.
+
+    world: every rank (the backbone's and head's BatchNorm statistics,
+    the gradients); dp: the ranks of this rank's bev index, one a dp shard
+    (the global batch's gathers, the encoders' BatchNorm statistics); bev:
+    the ranks of this rank's dp shard (the halos and the row gathers)."""
+
+    world: Any
+    dp: Any
+    bev: Any
+    dp_rank: int
+    dp_size: int
+    bev_rank: int
+    bev_size: int
+
+
+def spatial_groups(group, bev: int) -> SpatialGroups:
+    """The dp and bev subgroups of `group`'s world, `bev` ranks a dp shard.
+    Every rank makes every subgroup, in one order, as `new_group` asks."""
+    if group is None:
+        raise ValueError(f"spatial_bev={bev} needs a process group of dp × {bev} ranks")
+    world, r = dist.get_world_size(group), dist.get_rank(group)
+    if world % bev:
+        raise ValueError(f"{world} ranks do not split into dp shards of spatial_bev={bev}")
+    dp = world // bev
+    ranks = dist.get_process_group_ranks(group)
+    dp_groups = [dist.new_group([ranks[d * bev + j] for d in range(dp)]) for j in range(bev)]
+    bev_groups = [dist.new_group(ranks[d * bev : (d + 1) * bev]) for d in range(dp)]
+    return SpatialGroups(world=group, dp=dp_groups[r % bev], bev=bev_groups[r // bev],
+                         dp_rank=r // bev, dp_size=dp, bev_rank=r % bev, bev_size=bev)
 
 
 def barrier(group) -> None:

@@ -21,9 +21,21 @@ and a barrier follows each checkpoint. `predict` gathers every rank's
 predictions in the global batches' order. Without a group (one process)
 all of this is the identity.
 
-The JAX package's spatial sharding and profiler hook have no counterpart
-here yet. Neither has its s0 slot-drop audit: the port's LiDAR encoder
-keeps every active site, so no frame loses slots to a cap.
+Spatial sharding (`train.spatial_bev` = b > 1, the JAX Trainer's
+`_compile_train_step_spatial`): the world of dp × b ranks splits into dp
+shards of b bev peers (`parallel.mesh.spatial_groups`); each rank loads
+its dp shard's rows of every global batch (`dp_rank`, `dp_size`: the
+loader's rank and world), and the steps are those of `parallel/spatial.py`:
+the BEV backbone and head split by rows over the peers, every BatchNorm
+statistic global, the loss that of the global batch. `predict` runs the
+spatial eval step and gathers each dp shard's frames once, in the global
+batches' order. With b = 1 the steps are the data-parallel ones above.
+
+`fit(profile_steps=(start, stop))` traces steps start..stop with
+`torch.profiler` into `<output_dir>/profile/` (the JAX Trainer's
+`jax.profiler` hook), one Chrome trace a rank. The JAX s0 slot-drop audit
+has no counterpart: the port's LiDAR encoder keeps every active site, so
+no frame loses slots to a cap.
 """
 from __future__ import annotations
 
@@ -42,6 +54,7 @@ from unidistill_torch.configs.nuscenes import ExpConfig
 from unidistill_torch.layers.lidar_encoder import SubMConv
 from unidistill_torch.models.bevfusion import BEVFusionCenterHead
 from unidistill_torch.parallel import mesh as parallel
+from unidistill_torch.parallel import spatial
 from unidistill_torch.serving.predictor import resolve_device
 from unidistill_torch.training import checkpoint as ckpt_lib
 from unidistill_torch.training.steps import distill_train_step, eval_step, metrics_to_host, train_step
@@ -129,6 +142,11 @@ class Trainer:
         self.group = parallel.init_from_env(device)
         self._owns_group = made_group and self.group is not None
         self.rank, self.world_size = parallel.rank(self.group), parallel.world_size(self.group)
+        sb = exp_cfg.train.spatial_bev
+        self.spatial = parallel.spatial_groups(self.group, sb) if sb > 1 else None
+        # the loader's rank and world: the dp shard (the rank without spatial sharding)
+        self.dp_rank, self.dp_size = ((self.spatial.dp_rank, self.spatial.dp_size) if self.spatial
+                                      else (self.rank, self.world_size))
         self.device = resolve_device(parallel.local_device(device) if self.group is not None else device)
         self.model = BEVFusionCenterHead(self.cfg)
         self.optimizer = None
@@ -219,8 +237,14 @@ class Trainer:
     # ---- train step ----------------------------------------------------------
     def train_step(self, state: TrainState, batch, teacher=None) -> Dict[str, torch.Tensor]:
         """One step of the model on this rank's rows `batch`, data-parallel
-        over the trainer's group; `teacher` (model, cfg, dcfg) for
-        distillation."""
+        over the trainer's group (or spatially sharded); `teacher` (model,
+        cfg, dcfg) for distillation."""
+        if self.spatial is not None:
+            if teacher is None:
+                return spatial.train_step_spatial(state, batch, self.model, self.optimizer, self.cfg, self.spatial)
+            t_model, t_cfg, dcfg = teacher
+            return spatial.distill_train_step_spatial(state, batch, self.model, t_model, self.optimizer, self.cfg,
+                                                      t_cfg, dcfg, self.spatial)
         if teacher is None:
             return train_step(state, batch, self.model, self.optimizer, self.cfg, self.group)
         t_model, t_cfg, dcfg = teacher
@@ -229,7 +253,8 @@ class Trainer:
 
     # ---- fit ------------------------------------------------------------------
     def fit(self, train_loader, max_epochs: int, resume_from: Optional[str] = None, teacher=None,
-            val_loader=None, val_dataset=None, eval_interval: int = 1) -> TrainState:
+            val_loader=None, val_dataset=None, eval_interval: int = 1,
+            profile_steps: Optional[tuple] = None) -> TrainState:
         """teacher: optional (model, cfg, dcfg) for distillation training,
         the model frozen on the trainer's device.
 
@@ -240,7 +265,11 @@ class Trainer:
         A step is logged every `PRINT_INTERVAL` steps and at each epoch's
         last one (so short epochs still record a loss). A logged step records its metrics (one read-back from the device),
         `sec_per_step` and `loader_wait_sec_per_step` (the host's wait for
-        the next batch), averaged over the steps since the last log."""
+        the next batch), averaged over the steps since the last log.
+
+        profile_steps: (start, stop): a `torch.profiler` trace of the steps
+        from `start` through `stop` (global step numbers) in
+        `<output_dir>/profile/`, one `trace_rank<r>.json` a rank."""
         steps_per_epoch = len(train_loader)
         state = self.init_state(steps_per_epoch)
         if resume_from:
@@ -262,7 +291,11 @@ class Trainer:
                 wait += time.perf_counter() - tw
                 if batch is None:
                     break
+                if profile_steps and state.step == profile_steps[0]:
+                    prof = self._start_profile()
                 metrics = self.train_step(state, batch, teacher)
+                if profile_steps and state.step - 1 == profile_steps[1]:
+                    self._stop_profile(prof)
                 step = state.step
                 if self.rank == 0 and (step % PRINT_INTERVAL == 0 or step == epoch_end):
                     m = metrics_to_host(metrics)
@@ -278,6 +311,22 @@ class Trainer:
             if val_loader is not None and (epoch + 1) % eval_interval == 0:
                 self.validate(val_loader, val_dataset, epoch=epoch)
         return state
+
+    def _start_profile(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        out = os.path.join(self.output_dir, "profile")
+        os.makedirs(out, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out, f"trace_rank{self.rank}.json"))
 
     def validate(self, val_loader, val_dataset, epoch=None):
         """Epoch-boundary validation: the validation split's submission,
@@ -303,19 +352,24 @@ class Trainer:
         0-based and the frame's `meta` (ref …base_exp.py:419-434). Under a
         group every rank returns every rank's frames, gathered and put in
         the global batches' order (JAX `predict`'s multihost gather): rank
-        r's share of each global batch follows rank r - 1's."""
+        r's share of each global batch follows rank r - 1's. Spatially
+        sharded, each dp shard's frames are gathered once (over the ranks
+        of this rank's bev index)."""
         self.model.eval()
         local: List[List[Dict]] = []
         for batch in loader:
             frames: List[Dict] = []
             if batch:  # a rank's share of a short last global batch may be empty
-                rois = {k: v.cpu().numpy() for k, v in eval_step(self.model, batch, self.cfg).items()}
+                rois = (eval_step(self.model, batch, self.cfg) if self.spatial is None
+                        else spatial.eval_step_spatial(self.model, batch, self.cfg, self.spatial))
+                rois = {k: v.cpu().numpy() for k, v in rois.items()}
                 for b in range(rois["boxes"].shape[0]):
                     m = rois["mask"][b]
                     frames.append(dict(boxes=rois["boxes"][b][m], scores=rois["scores"][b][m],
                                        labels=rois["labels"][b][m] - 1, meta=batch["meta"][b]))
             local.append(frames)
-        return [f for frames in parallel.all_gather_host_objects(local, group=self.group) for f in frames]
+        group = self.group if self.spatial is None else self.spatial.dp
+        return [f for frames in parallel.all_gather_host_objects(local, group=group) for f in frames]
 
     def evaluate(self, loader, dataset) -> Optional[Dict]:
         """Predict the validation split, write its submission and score it

@@ -29,7 +29,9 @@ normalisers are `pmean`'d over the ranks, the gradients averaged over them
 `loss` metric too; every other metric is the rank's own (JAX returns device
 0's). BatchNorm normalises by the rank's own rows and each rank keeps its
 own running statistics, as each JAX device does; the parameters stay equal
-on every rank. The teacher is neither synchronised nor averaged.
+on every rank. The teacher is neither synchronised nor averaged. The
+(dp, bev) spatial steps (`parallel/spatial.py`) reuse `detector_loss`,
+`distill_loss` and `_update` with their own forward and gradient reduce.
 """
 from __future__ import annotations
 
@@ -113,10 +115,17 @@ def detector_loss(out: Dict, gt_boxes: torch.Tensor, cfg: ModelConfig, group=Non
     )
 
 
-def _update(state: TrainState, loss: torch.Tensor, optimizer: Optimizer, metrics: Dict, group) -> Dict:
+def _update(state: TrainState, loss: torch.Tensor, optimizer: Optimizer, metrics: Dict, group,
+            reduce_grads=None) -> Dict:
+    """Backward, the gradients averaged over `group` (or reduced by
+    `reduce_grads(params)`), the optimizer's update; the loss `pmean`'d over
+    `group`."""
     optimizer.zero_grad()
     loss.backward()
-    average_gradients(optimizer.params, group)
+    if reduce_grads is None:
+        average_gradients(optimizer.params, group)
+    else:
+        reduce_grads(optimizer.params)
     metrics["grad_norm"] = optimizer.step(state.step)
     metrics["loss"] = pmean(loss.detach(), group)
     state.step += 1
@@ -144,15 +153,24 @@ def distill_train_step(state: TrainState, batch: Dict[str, Any], student, teache
     the student trains on the train cap (each voxelises the batch itself).
     Data-parallel over `group`."""
     device = next(student.parameters()).device
-    gt = _tensor(batch["gt_boxes"], device)
-    gt_mask = gt.abs().sum(-1) > 0
-    corners = gt_corners_bev(gt, student_cfg.point_cloud_range, student_cfg.voxel_size,
-                             student_cfg.out_size_factor)
     teacher.eval()
     with torch.no_grad():
         t_out = teacher(**model_inputs(batch, teacher_cfg, device, training=False))
     student.train()
     out = student(**model_inputs(batch, student_cfg, device, training=True))
+    total, metrics = distill_loss(out, t_out, batch, student_cfg, dcfg, group)
+    return _update(state, total, optimizer, metrics, group)
+
+
+def distill_loss(out: Dict, t_out: Dict, batch: Dict[str, Any], student_cfg: ModelConfig,
+                 dcfg: DistillConfig, group=None):
+    """The student's outputs `out` against the teacher's `t_out`: (total,
+    metrics), the normalisers `pmean`'d over `group`."""
+    device = out["awl_params"].device
+    gt = _tensor(batch["gt_boxes"], device)
+    gt_mask = gt.abs().sum(-1) > 0
+    corners = gt_corners_bev(gt, student_cfg.point_cloud_range, student_cfg.voxel_size,
+                             student_cfg.out_size_factor)
     det_loss, metrics, preds_sig = detector_loss(out, gt, student_cfg, group)
     l_feat = feature_distill_loss(out["model_output"], t_out["model_output"], corners, gt_mask, group)
     l_rel = bev_distill_loss(out["bev_feature"], t_out["bev_feature"], corners, gt_mask, group)
@@ -164,7 +182,7 @@ def distill_train_step(state: TrainState, batch: Dict[str, Any], student, teache
     total = det_loss + dcfg.w_feature * l_feat + dcfg.w_rel * l_rel + dcfg.w_resp * (l_cls + l_reg)
     metrics.update(loss_feature=l_feat, loss_bev_rel=l_rel, loss_resp_cls=l_cls,
                    loss_resp_reg=l_reg, loss_det=det_loss)
-    return _update(state, total, optimizer, metrics, group)
+    return total, metrics
 
 
 def metrics_to_host(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
