@@ -211,6 +211,25 @@ Phases, each printed on its own line:
            five TP errors finite; no loader worker left; no file written
            under the repository. Prints s/step and the loader wait a step
            from metrics.jsonl, and the phase's wall seconds
+  cli pipeline   the paper's teacher->student pipeline through the seven
+           launchers' CLIs on the same data root (batch 4, 4 loader workers,
+           CBGS off, one epoch of 3 steps, no validation): the LiDAR, camera
+           and fusion launchers train the teachers; the LiDAR<-camera,
+           LiDAR<-fusion and camera<-fusion launchers train from those
+           teachers' checkpoints; the LiDAR launcher evaluates (-e) the
+           LiDAR<-fusion checkpoint and the fusion launcher predicts (-p) on
+           the test split (a copy of the validation infos) from its own.
+           Each run with every launch count set to 0 just before and read
+           just after, every kernel count exact (PIPELINE_LAUNCHES; K2 and K3
+           at least once in -e and -p), the peak memory reset before it.
+           Checks: the checkpoint at step 3, the model moved from its seeded
+           start, finite metrics; each teacher bit-equal to its launcher's
+           checkpoint, no tensor kept from init, frozen; a LiDAR student's
+           encoder moved; -e's mAP, NDS and TP errors finite; -p's tokens
+           the test split's, 4 frames of 9-wide boxes, labels >= 0; no
+           loader worker left, no file written under the repository. Prints
+           for each run its seconds, s/step, loader wait a step, peak memory,
+           launches and last losses
   ddp distill lidar->camera   two ranks on the one card in a gloo world
            (`parallel.launch.run_ranks`; NCCL takes one rank a card), each
            with its 2 rows of the distill train batch (global 4), through
@@ -350,6 +369,26 @@ TRAIN_TINY_GRAD_TOL = 5e-3
 CLI_TRAIN_FRAMES = 12
 CLI_VAL_FRAMES = 4
 CLI_WORKERS = 4
+# [cli pipeline]: kernel launches a run of one epoch of 3 steps (PERF.md
+# §4's counts a step: a LiDAR encoder forward K4 21, trained K4 dgrad 20
+# and K6 21; a camera encoder forward K1 1, trained K5 1; a frozen teacher
+# runs its forward only), and of -e / -p on the 4 frames of one batch (None:
+# at least once)
+PIPELINE_LAUNCHES = {
+    "lidar": dict(sparse_conv_fwd=63, sparse_conv_dgrad=60, sparse_conv_wgrad=63, bev_pool_fwd=0, bev_pool_bwd=0),
+    "camera": dict(sparse_conv_fwd=0, sparse_conv_dgrad=0, sparse_conv_wgrad=0, bev_pool_fwd=3, bev_pool_bwd=3),
+    "fusion": dict(sparse_conv_fwd=63, sparse_conv_dgrad=60, sparse_conv_wgrad=63, bev_pool_fwd=3, bev_pool_bwd=3),
+    "lidar<-camera": dict(sparse_conv_fwd=63, sparse_conv_dgrad=60, sparse_conv_wgrad=63, bev_pool_fwd=3,
+                          bev_pool_bwd=0),
+    "lidar<-fusion": dict(sparse_conv_fwd=126, sparse_conv_dgrad=60, sparse_conv_wgrad=63, bev_pool_fwd=3,
+                          bev_pool_bwd=0),
+    "camera<-fusion": dict(sparse_conv_fwd=63, sparse_conv_dgrad=0, sparse_conv_wgrad=0, bev_pool_fwd=6,
+                           bev_pool_bwd=3),
+    "lidar -e": dict(sparse_conv_fwd=21, sparse_conv_dgrad=0, sparse_conv_wgrad=0, bev_pool_fwd=0, bev_pool_bwd=0,
+                     rotated_iou_mask=None, nms_greedy_select=None),
+    "fusion -p": dict(sparse_conv_fwd=21, sparse_conv_dgrad=0, sparse_conv_wgrad=0, bev_pool_fwd=1, bev_pool_bwd=0,
+                      rotated_iou_mask=None, nms_greedy_select=None),
+}
 # the data-parallel phases: two ranks on the one card in a gloo world (NCCL
 # takes one rank a card; gloo all-reduces and broadcasts CUDA tensors
 # through the host), BATCH // DDP_RANKS frames a rank of each global batch
@@ -1991,17 +2030,19 @@ def cli_run(phase, fn, argv, want):
     import multiprocessing
     from unidistill_torch.kernels import build
     build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     trainer = fn(argv=argv)
     seconds = time.time() - t0
     launches = dict(build.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     gc.collect()
     if multiprocessing.active_children():
         raise RuntimeError(f"{phase}: loader workers still running: {multiprocessing.active_children()}")
     with open(Path(trainer.output_dir) / "metrics.jsonl") as f:
         records = [json.loads(line) for line in f]
     steps_logged = [r for r in records if "step" in r]
-    log(phase, seconds=f"{seconds:.2f}", launches=json.dumps(launches, sort_keys=True),
+    log(phase, seconds=f"{seconds:.2f}", peak_gib=f"{peak_gib:.2f}", launches=json.dumps(launches, sort_keys=True),
         logged_steps=[r["step"] for r in steps_logged],
         s_per_step=[round(r["sec_per_step"], 4) for r in steps_logged],
         loader_wait_s_per_step=[round(r["loader_wait_sec_per_step"], 4) for r in steps_logged],
@@ -2055,7 +2096,8 @@ def cli_phases(dev) -> None:
     """[cli distill lidar->camera]: the camera<-LiDAR launcher's CLI at full
     width on an on-disk synthetic nuScenes in a temporary directory: one
     epoch from a saved LiDAR teacher, a resume to the second epoch (with
-    validation), then the camera launcher's CLI with -e on the checkpoint."""
+    validation), then the camera launcher's CLI with -e on the checkpoint.
+    Then [cli pipeline] on the same data root."""
     import tempfile
     from unidistill_torch.configs.nuscenes import camera_exp
     from unidistill_torch.exps.base_cli import run_cli
@@ -2131,10 +2173,122 @@ def cli_phases(dev) -> None:
             raise RuntimeError(f"{phase}: scores {numbers}")
         log(f"{phase} scores", **{k: f"{v:.6g}" for k, v in numbers.items()},
             val_mAP=f"{val_recs[0]['mean_ap']:.6g}")
+        del tr1, tr2, tr3
+        torch.cuda.empty_cache()
+        log(phase, wall_seconds=f"{time.time() - t_phase:.2f}", smi=repr(nvidia_smi_line()))
+        cli_pipeline_phase(tmp, root)
     written = sorted(set(repo_files().items()) - set(before.items()))
     if written:
-        raise RuntimeError(f"{phase}: files written under the repository: {written[:10]}")
-    log(phase, wall_seconds=f"{time.time() - t_phase:.2f}", smi=repr(nvidia_smi_line()))
+        raise RuntimeError(f"[cli distill lidar->camera], [cli pipeline]: files written under the repository: "
+                           f"{written[:10]}")
+
+
+def cli_pipeline_phase(tmp: Path, root: str) -> None:
+    """[cli pipeline]: the paper's teacher->student pipeline through the
+    seven launchers' CLIs, in `tmp` on the data root `root`: the three
+    detector launchers train the teachers, the three distill launchers that
+    [cli distill lidar->camera] does not run train from those teachers'
+    checkpoints, then -e with the LiDAR launcher and -p with the fusion
+    launcher (PIPELINE_LAUNCHES has each run's kernel counts)."""
+    import gc
+    import pickle
+    import shutil
+    from unidistill_torch.configs import nuscenes as cfgs
+    from unidistill_torch.exps.base_cli import run_cli
+    from unidistill_torch.exps.distill_cli import run_distill_cli
+    from unidistill_torch.models.bevfusion import BEVFusionCenterHead
+    from unidistill_torch.training import checkpoint as ckpt_lib
+    from unidistill_torch.training.loop import init_params
+
+    phase = "cli pipeline"
+    t_phase = time.time()
+    shutil.copy(Path(root) / "val_info.pkl", Path(root) / "test_info.pkl")
+    steps = CLI_TRAIN_FRAMES // BATCH
+    common = ["-b", str(BATCH), "--num_workers", str(CLI_WORKERS), "--data_root", root]
+    train_argv = common + ["--max_epochs", "1", "--exp_options", "data.use_cbgs=False", "train.eval_interval=2"]
+    ckpts = {}
+
+    def trained(name, modality, fn, argv, teacher_ckpt=None):
+        """One training run of a launcher: the checks every training run
+        makes, and those of a distill run's teacher. Returns the checkpoint's
+        model and the seeded start."""
+        trainer, _, logged = cli_run(f"{phase} {name}", fn, argv, PIPELINE_LAUNCHES[name])
+        if [r["step"] for r in logged] != [steps]:
+            raise RuntimeError(f"{phase} {name}: logged steps {[r['step'] for r in logged]}, expected [{steps}]")
+        ckpt_dir = str(Path(trainer.output_dir) / "ckpt")
+        ckpt = ckpt_lib.restore_checkpoint_any(ckpt_dir)
+        if ckpt["step"] != steps:
+            raise RuntimeError(f"{phase} {name}: checkpoint at step {ckpt['step']}, expected {steps}")
+        if teacher_ckpt is not None:
+            check_frozen(f"{phase} {name}", trainer.teacher)
+            t_sd = trainer.teacher.state_dict()
+            kept = [k for k, v in t_sd.items() if k not in teacher_ckpt or teacher_ckpt[k].shape != v.shape]
+            differ = [k for k, v in t_sd.items() if k not in kept and not torch.equal(v.cpu(), teacher_ckpt[k])]
+            if kept or differ or t_sd.keys() != teacher_ckpt.keys():
+                raise RuntimeError(f"{phase} {name}: teacher tensors kept from init {kept[:5]}, differing from "
+                                   f"the checkpoint {differ[:5]}, of {len(t_sd)}")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        start = init_params(BEVFusionCenterHead(getattr(cfgs, f"{modality}_exp")().model), seed=0).state_dict()
+        change = max((ckpt["model"][k].float() - v.float()).abs().max().item()
+                     for k, v in start.items() if v.is_floating_point())
+        if not change > 0:
+            raise RuntimeError(f"{phase} {name}: the model did not move from its seeded start")
+        ckpts[name] = ckpt_dir
+        return ckpt["model"], start
+
+    with contextlib.chdir(tmp):
+        # ---- the teachers: the three detector launchers ---------------------------
+        for modality in ("lidar", "camera", "fusion"):
+            trained(modality, modality, lambda argv, m=modality: run_cli(getattr(cfgs, f"{m}_exp")(), argv=argv),
+                    train_argv)
+        # ---- the students, from the teachers' checkpoints -------------------------
+        for teacher, student in (("camera", "lidar"), ("fusion", "lidar"), ("fusion", "camera")):
+            name = f"{student}<-{teacher}"
+            model, start = trained(
+                name, student, lambda argv, t=teacher, s=student: run_distill_cli(t, s, argv),
+                train_argv + ["--teacher_ckpt", ckpts[teacher]],
+                ckpt_lib.restore_checkpoint_any(ckpts[teacher])["model"])
+            if student == "lidar" and not any(not torch.equal(model[k], v) for k, v in start.items()
+                                              if k.startswith("lidar_encoder.") and v.is_floating_point()):
+                raise RuntimeError(f"{phase} {name}: no lidar_encoder tensor changed")
+            del model, start
+
+        # ---- -e with the LiDAR launcher on the LiDAR<-fusion student ----------------
+        tr, _, _ = cli_run(f"{phase} lidar -e", lambda argv: run_cli(cfgs.lidar_exp(), argv=argv),
+                           common + ["-e", "--ckpt_path", ckpts["lidar<-fusion"]], PIPELINE_LAUNCHES["lidar -e"])
+        with open(Path(tr.output_dir) / "nuscenes" / "metrics_summary.json") as f:
+            scores = json.load(f)
+        numbers = dict(mAP=scores["mean_ap"], NDS=scores["nd_score"], **scores["tp_errors"])
+        if len(numbers) != 7 or not all(math.isfinite(v) for v in numbers.values()):
+            raise RuntimeError(f"{phase} lidar -e: scores {numbers}")
+        log(f"{phase} lidar -e scores", **{k: f"{v:.6g}" for k, v in numbers.items()})
+        del tr
+
+        # ---- -p with the fusion launcher on its own checkpoint ------------------------
+        tr, _, _ = cli_run(f"{phase} fusion -p", lambda argv: run_cli(cfgs.fusion_exp(), argv=argv),
+                           common + ["-p", "--ckpt_path", ckpts["fusion"]], PIPELINE_LAUNCHES["fusion -p"])
+        sub_dir = Path(tr.output_dir) / "nuscenes_submission"
+        with open(Path(root) / "test_info.pkl", "rb") as f:
+            tokens = [info["sample_token"] for info in pickle.load(f)]
+        with open(sub_dir / "nuscenes_results.json") as f:
+            sub_tokens = set(json.load(f)["results"])
+        with open(sub_dir / "boxes.pkl", "rb") as f:
+            preds = pickle.load(f)
+        ok = (len(tokens) == CLI_VAL_FRAMES and sub_tokens == set(tokens)
+              and [p["meta"]["token"] for p in preds] == tokens
+              and all(p["boxes"].ndim == 2 and p["boxes"].shape[1] == 9 and p["labels"].min(initial=0) >= 0
+                      for p in preds))
+        if not ok:
+            raise RuntimeError(f"{phase} fusion -p: tokens {sorted(sub_tokens)} / "
+                               f"{[p['meta']['token'] for p in preds]} against {tokens}, boxes "
+                               f"{[p['boxes'].shape for p in preds]}")
+        log(f"{phase} fusion -p boxes", frames=len(preds), boxes=[int(p["boxes"].shape[0]) for p in preds])
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(phase, wall_seconds=f"{time.time() - t_phase:.2f}", runs=8, smi=repr(nvidia_smi_line()))
 
 
 # ---- data parallelism -------------------------------------------------------
