@@ -165,8 +165,10 @@ Phases, each printed on its own line:
            detector also "host_voxels") into a temporary directory; a fresh
            process (`chip_smoke.py load-artifacts`, which imports
            `serving.export` and nothing of models, layers or training, and
-           says so) loads each artifact and predicts on two batches whose
-           LiDAR stages hold other site counts; masks and labels must equal
+           says so), started first, loads each artifact while the next is
+           exported and predicts on two batches whose LiDAR stages hold
+           other site counts, and times the loaded programs once all are
+           in; masks and labels must equal
            the live `Detector.predict`'s, boxes and scores within
            EXPORT_TOL_OF_MAX, and the loaded process must launch K1-K4 as
            often a request as the live detector. Prints export s, artifact
@@ -200,12 +202,11 @@ Phases, each printed on its own line:
            scenes); a seeded LiDAR teacher, BatchNorm calibrated on the
            validation frames, is saved with `checkpoint.save_checkpoint`;
            then `run_distill_cli("lidar", "camera")` trains one epoch (batch
-           4, 4 spawned loader workers, CBGS off), resumes to a second epoch
-           (validation at its end), and `run_cli(camera_exp())` evaluates the
-           checkpoint (-e, the native scorer), each run with every launch
-           count set to 0 just before and read just after. Checks: K4 21
-           times and K1, K5 once a train step, K1, K2, K3 in validation and
-           -e; finite losses; the student changed and the teacher did not;
+           4, 4 spawned loader workers, CBGS off) and resumes to a second
+           epoch (validation at its end, the native scorer), each run with
+           every launch count set to 0 just before and read just after.
+           Checks: K4 21 times and K1, K5 once a train step, K1, K2, K3 in
+           validation; finite losses; the student changed and the teacher did not;
            the resumed run trained only the second epoch; the last
            checkpoint equals the trained model bit for bit; mAP, NDS and the
            five TP errors finite; no loader worker left; no file written
@@ -230,6 +231,31 @@ Phases, each printed on its own line:
            loader worker left, no file written under the repository. Prints
            for each run its seconds, s/step, loader wait a step, peak memory,
            launches and last losses
+  convergence g1, g2, g3, g4   the JAX package's convergence gate
+           (tests/test_convergence.py) on the port's own steps
+           (`experiments/convergence.py`), bf16, from the port's seeded
+           initial weights, with the JAX gate's thresholds: g1 the tiny
+           LiDAR detector overfits two frames of planted boxes for 220 steps
+           (tasks 0/3/5 loc losses below 0.3x their first, hm below 0.5x;
+           after exact batch statistics at least 5/8 of the boxes found
+           within 5.4 m, 3/4 of those with the right class, yaw and
+           velocity); g2 a tiny fusion teacher trains 120 steps, then two
+           tiny LiDAR students from one init 120 steps each, plain and
+           distilled: the distilled one's matched score on two held-out
+           scenes must beat the plain one's; g3 a tiny camera student's four
+           distill terms from a tiny LiDAR teacher must fall over 60 steps;
+           each at the seeds of CONVERGENCE_SEEDS (over several, as
+           `convergence.pooled` holds them: g1's hits and g2's scores on
+           their totals, all else for each seed); g4 is g3 at full width
+           (`distill_exp("lidar", "camera")`, batch CONVERGENCE_FULL_BATCH,
+           scene frames on the full grid seen by the main path's six
+           cameras, a seeded teacher). The steps are host-bound, so each
+           seed of g1 and g2 runs in a process of its own on the card, g3
+           and g4 in one more, all at once. Each gate's line
+           comes before anything is held: first and last losses and their
+           ratios, hits, scores, seconds, s/step, peak memory, launches;
+           every step's launches exact (CONVERGENCE_STEP_LAUNCHES), K2 and
+           K3 once an eval
   ddp distill lidar->camera   two ranks on the one card in a gloo world
            (`parallel.launch.run_ranks`; NCCL takes one rank a card), each
            with its 2 rows of the distill train batch (global 4), through
@@ -267,6 +293,8 @@ Phases, each printed on its own line:
            host seconds spent in them (gloo synchronises each with the card)
   spatial tiny   the tiny float32 spatial distill step over the same two
            ranks, on the card (TF32 off) against the CPU, as ddp tiny
+  (ddp and spatial ranks: one spawned world of two processes runs the
+           ddp, then the spatial ones; `world_wall_seconds` is its wall time)
   ddp nccl two tiny distill steps through a `Trainer` that makes an NCCL
            group of one rank from `torchrun`'s environment
            (`parallel.mesh.init_from_env`), against the same steps with no
@@ -389,6 +417,28 @@ PIPELINE_LAUNCHES = {
     "fusion -p": dict(sparse_conv_fwd=21, sparse_conv_dgrad=0, sparse_conv_wgrad=0, bev_pool_fwd=1, bev_pool_bwd=0,
                       rotated_iou_mask=None, nms_greedy_select=None),
 }
+# [convergence]: the port's own seeded initial weights of each tiny gate
+# (`experiments.convergence.run_gate`). G1's and G2's outcomes move with
+# the initial weights in both frameworks (ROADMAP Queue C), so each runs
+# at three seeds, held as `convergence.pooled` holds them: G1's hits and
+# G2's scores on their totals, all else at the JAX gate's bar for each seed
+CONVERGENCE_SEEDS = {"g1": (0, 1, 2), "g2": (0, 1, 2), "g3": (0,)}
+CONVERGENCE_FULL_BATCH = 2  # G4, the camera<-LiDAR gate at full width
+# the exact launches of one step of each gate stage: a LiDAR detector's
+# train step (G1, G2's plain student), the fusion teacher's (G2), the
+# LiDAR student's from that teacher (G2; the teacher's forward adds K1
+# and K4), the camera student's from a LiDAR teacher (G3, G4)
+_LIDAR_STEP = dict(sparse_conv_fwd=SPARSE_CONVS_PER_REQUEST, sparse_conv_dgrad=SPARSE_CONV_DGRADS_PER_STEP,
+                   sparse_conv_wgrad=SPARSE_CONVS_PER_REQUEST)
+CONVERGENCE_STEP_LAUNCHES = {
+    "overfit": _LIDAR_STEP,
+    "plain": _LIDAR_STEP,
+    "teacher": dict(_LIDAR_STEP, bev_pool_fwd=1, bev_pool_bwd=1),
+    "distilled": dict(_LIDAR_STEP, sparse_conv_fwd=2 * SPARSE_CONVS_PER_REQUEST, bev_pool_fwd=1),
+    "distill": dict(sparse_conv_fwd=SPARSE_CONVS_PER_REQUEST, bev_pool_fwd=1, bev_pool_bwd=1),
+}
+CONVERGENCE_EVALS = {"g1": 1, "g2": 4, "g3": 0}  # eval_step calls of a gate: K2 and K3 once each
+CONVERGENCE_TIMEOUT_S = 600  # the phase's processes, all of them
 # the data-parallel phases: two ranks on the one card in a gloo world (NCCL
 # takes one rank a card; gloo all-reduces and broadcasts CUDA tensors
 # through the host), BATCH // DDP_RANKS frames a rank of each global batch
@@ -1707,31 +1757,42 @@ def roi_face_distance(rois, xyz, pt, cell):
 MODEL_MODULES = ("unidistill_torch.models", "unidistill_torch.layers", "unidistill_torch.training")
 
 
-def load_artifacts(jobs_path: str, out_path: str) -> int:
+def load_artifacts(jobs_dir: str, out_path: str, n_jobs: str) -> int:
     """The loading process of the export phases (`chip_smoke.py
-    load-artifacts JOBS OUT`): imports `unidistill_torch.serving.export` and
-    nothing of `models`, `layers` or `training`; for each artifact of the
-    pickled jobs, loads it (seconds), predicts on each batch, counts one
-    request's launches, and times `EXPORT_LATENCY_CALLS` calls of the loaded
-    program on the batch's device tensors and of `predict` (numpy in and
-    out; host clock ending in a synchronise); pickles the results."""
+    load-artifacts JOBS_DIR OUT N`): imports `unidistill_torch.serving.export`
+    and nothing of `models`, `layers` or `training`. It runs beside the
+    exports: it takes each pickled job (`job0.pkl` ... `job{N-1}.pkl`, an
+    artifact and its batches) as the export phase writes it, loads the
+    artifact (seconds), predicts on each batch and counts one request's
+    launches. Once every artifact is in, the exports are over, and it times
+    `EXPORT_LATENCY_CALLS` calls of each loaded program on its batch's
+    device tensors and of `predict` (numpy in and out; host clock ending in
+    a synchronise); pickles the results."""
     import pickle
     import statistics
     sys.path.insert(0, str(ROOT))
     from unidistill_torch.kernels import build
     from unidistill_torch.serving.export import load_detector
-    with open(jobs_path, "rb") as f:
-        jobs = pickle.load(f)
-    out = {}
-    for name, job in jobs.items():
+    out, loaded = {}, []
+    deadline = time.monotonic() + EXPORT_LOAD_TIMEOUT_S
+    for i in range(int(n_jobs)):
+        path = Path(jobs_dir) / f"job{i}.pkl"
+        while not path.exists():  # written whole, then renamed into place
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"no {path.name} within {EXPORT_LOAD_TIMEOUT_S} s")
+            time.sleep(0.1)
+        with open(path, "rb") as f:
+            job = pickle.load(f)
         t0 = time.perf_counter()
         det = load_detector(job["path"])
         load_s = time.perf_counter() - t0
         rois = [det.predict(b) for b in job["batches"]]
         build.reset_launches()
         det.predict(job["batches"][0])
-        launches = dict(build.LAUNCHES)
-        inputs = det.inputs(job["batches"][0])
+        out[job["name"]] = dict(load_s=load_s, rois=rois, launches=dict(build.LAUNCHES))
+        loaded.append((job["name"], det, job["batches"][0]))
+    for name, det, batch in loaded:
+        inputs = det.inputs(batch)
         times = {"program": [], "predict": []}
         with torch.no_grad():
             for _ in range(EXPORT_LATENCY_CALLS):
@@ -1742,12 +1803,10 @@ def load_artifacts(jobs_path: str, out_path: str) -> int:
                 times["program"].append(time.perf_counter() - t0)
         for _ in range(EXPORT_LATENCY_CALLS):
             t0 = time.perf_counter()
-            det.predict(job["batches"][0])  # ends in the outputs' copy to the host
+            det.predict(batch)  # ends in the outputs' copy to the host
             times["predict"].append(time.perf_counter() - t0)
-        out[name] = dict(load_s=load_s, rois=rois, launches=launches,
-                         **{f"{k}_ms": statistics.median(v) * 1e3 for k, v in times.items()})
-        del det, inputs
-        torch.cuda.empty_cache()
+        out[name].update({f"{k}_ms": statistics.median(v) * 1e3 for k, v in times.items()})
+        del inputs
     out["modules"] = sorted(m for m in sys.modules
                             if m.startswith(MODEL_MODULES) or m.split(".")[0] in ("jax", "unidistill_tpu"))
     with open(out_path, "wb") as f:
@@ -1763,21 +1822,14 @@ def export_phases(dev) -> dict:
     """The serving export of the three detectors at full width, batch 4
     (seeded weights, BatchNorm calibrated): export on the card, save, load
     in a fresh process, predict on two batches of other seeds, compare with
-    the live `Detector.predict`. Returns the kernels' recorded arguments of
-    the live requests, for the launch path."""
+    the live `Detector.predict`. The loading process starts first and loads
+    each artifact while the next one is exported (`load_artifacts`).
+    Returns the kernels' recorded arguments of the live requests, for the
+    launch path."""
     import pickle
-    import statistics
     import tempfile
     from unidistill_torch.configs.nuscenes import (
         SWIN_CAMERA_OVERRIDES, apply_overrides, camera_exp, fusion_exp, lidar_exp)
-    from unidistill_torch.kernels import build
-    from unidistill_torch.layers.lidar_encoder import build_rulebooks, stage_shapes
-    from unidistill_torch.ops import bev_pool, nms, sparse_conv
-    from unidistill_torch.serving.export import _batch_spec, _flatten_paths, export_detector
-    from unidistill_torch.serving.predictor import Detector
-    from unidistill_torch.serving.synthetic import (
-        calibrate_batchnorm, nuscenes_batch, random_state_dict, train_batch)
-    from unidistill_torch.training.steps import model_inputs, voxelize_batch
 
     t_phase = time.time()
     recorded = {}
@@ -1788,84 +1840,127 @@ def export_phases(dev) -> dict:
     cases = (("camera", camera_exp, "points", 50, 1), ("lidar", lidar_exp, "points", 51, 1),
              ("fusion", fusion_exp, "points", 52, 1), ("lidar host_voxels", lidar_exp, "host_voxels", 51, 1),
              ("swin", swin_exp, "points", 53, 1), ("multisweep", camera_exp, "points", 54, SWEEPS))
-    fcfg = fusion_exp().model
-    full_batches = [to_device(train_batch(fcfg, fcfg, BATCH, seed=s), dev) for s in EXPORT_BATCH_SEEDS]
-    with tempfile.TemporaryDirectory(prefix="unidistill_export_") as tmp:
-        jobs, live = {}, {}
-        for name, exp, mode, seed, sweeps in cases:
-            cfg = exp().model
-            batches = []
-            for full, batch_seed in zip(full_batches, EXPORT_BATCH_SEEDS):
-                if sweeps > 1:
-                    full = dict(to_device(nuscenes_batch(cfg, BATCH, seed=batch_seed, sweeps=sweeps), dev),
-                                gt_boxes=full["gt_boxes"])
-                b = {k: full[k] for k in _flatten_paths(_batch_spec(cfg, BATCH, "points", sweeps)) if "/" not in k}
-                if cfg.with_camera:
-                    b["mats"] = full["mats"]
-                if mode == "host_voxels":
-                    b = dict(voxelize_batch(full, cfg, dev, training=False), gt_boxes=full["gt_boxes"])
-                batches.append(b)
-            det = Detector(cfg, random_state_dict(cfg, seed=seed, sweeps=sweeps), device=dev)
-            calibrate_batchnorm(det.model, model_inputs(batches[0], cfg, dev, training=False))
-            if cfg.with_lidar:  # the stages' active sites of each batch
-                sites = []
-                for b in batches:
-                    kw = model_inputs(b, cfg, dev, training=False)
-                    rb = build_rulebooks(kw["voxel_feats"].float(), kw["voxel_coords"],
-                                         stage_shapes(cfg.lidar_encoder.grid_size))
-                    sites.append([st.keys.numel() for st in rb.sites])
-                if any(a == b for a, b in zip(*sites)):
-                    raise RuntimeError(f"[export {name}] the two batches share a stage's site count: {sites}")
-            else:
-                sites = None
-            # the live detector: ROIs, one request's launches, latency
-            recorders = ([Recorder(bev_pool, "bev_pool_cells_cuda"), Recorder(sparse_conv, "sparse_conv_cuda"),
-                          Recorder(nms, "rotated_iou_mask_cuda"), Recorder(nms, "nms_greedy_select_cuda")]
-                         if name in ("camera", "lidar") else [])
-            with contextlib.ExitStack() as stack:
-                for r in recorders:
-                    stack.enter_context(r)
-                rois = [det.predict(batches[0])]
-            rois.append(det.predict(batches[1]))
-            for r in recorders:
-                if r.calls:
-                    recorded.setdefault(r.name, [a for a, _ in r.calls])
-            torch.cuda.synchronize()
-            build.reset_launches()
-            det.predict(batches[0])
-            torch.cuda.synchronize()
-            live_launches = dict(build.LAUNCHES)
-            lat = []
-            for _ in range(EXPORT_LATENCY_CALLS):
-                t0 = time.perf_counter()
-                det.predict(batches[0])
-                torch.cuda.synchronize()
-                lat.append(time.perf_counter() - t0)
-            path = str(Path(tmp) / name.replace(" ", "_"))
+    with tempfile.TemporaryDirectory(prefix="unidistill_export_") as tmp, \
+            open(Path(tmp) / "loading.log", "w+") as proc_log:
+        t_proc = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "load-artifacts", tmp,
+                                 str(Path(tmp) / "out.pkl"), str(len(cases))],
+                                stdout=proc_log, stderr=subprocess.STDOUT, text=True)
+        try:
+            live = export_cases(dev, cases, tmp, recorded, proc)
             t0 = time.perf_counter()
-            export_detector(cfg, det.model.state_dict(), path, batch_size=BATCH, input_mode=mode, device=dev)
-            export_s = time.perf_counter() - t0
-            live[name] = dict(rois=[{k: v.cpu().numpy() for k, v in r.items()} for r in rois],
-                              launches=live_launches, ms=statistics.median(lat) * 1e3, export_s=export_s,
-                              mb=os.path.getsize(Path(path) / "model.pt2") / 1e6, sites=sites)
-            jobs[name] = dict(path=path, batches=[_numpy_tree(b) for b in batches])
-            del det, batches, rois
-            torch.cuda.empty_cache()
-        del full_batches
-        with open(Path(tmp) / "jobs.pkl", "wb") as f:
-            pickle.dump(jobs, f)
-        del jobs
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "load-artifacts",
-                               str(Path(tmp) / "jobs.pkl"), str(Path(tmp) / "out.pkl")],
-                              capture_output=True, text=True, timeout=EXPORT_LOAD_TIMEOUT_S)
-        process_s = time.perf_counter() - t0
+            with contextlib.suppress(subprocess.TimeoutExpired):  # killed below; its log says where it was
+                proc.wait(timeout=EXPORT_LOAD_TIMEOUT_S)
+            wait_s, process_s = time.perf_counter() - t0, time.perf_counter() - t_proc
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         if proc.returncode != 0:
-            raise RuntimeError(f"[export] the loading process failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+            proc_log.seek(0)
+            raise RuntimeError(f"[export] the loading process failed:\n{proc_log.read()[-8000:]}")
         with open(Path(tmp) / "out.pkl", "rb") as f:
             loaded = pickle.load(f)
     if loaded["modules"]:
         raise RuntimeError(f"[export] the loading process imported {loaded['modules']}")
+    check_exports(cases, live, loaded)
+    log("export", seconds=f"{time.time() - t_phase:.1f}", loading_process_s=f"{process_s:.1f}",
+        waited_after_last_export_s=f"{wait_s:.1f}", loading_process_modules="none of models/layers/training")
+    return recorded
+
+
+def export_cases(dev, cases, tmp, recorded, proc) -> dict:
+    """Each case of `export_phases` built, calibrated, served live and
+    exported into `tmp`; its job (`jobN.pkl`) is handed to the loading
+    process `proc` as soon as its artifact is saved. Returns the live
+    detectors' ROIs, launches, latency, export seconds, sizes and sites."""
+    import pickle
+    import statistics
+    from unidistill_torch.configs.nuscenes import fusion_exp
+    from unidistill_torch.kernels import build
+    from unidistill_torch.layers.lidar_encoder import build_rulebooks, stage_shapes
+    from unidistill_torch.ops import bev_pool, nms, sparse_conv
+    from unidistill_torch.serving.export import _batch_spec, _flatten_paths, export_detector
+    from unidistill_torch.serving.predictor import Detector
+    from unidistill_torch.serving.synthetic import (
+        calibrate_batchnorm, nuscenes_batch, random_state_dict, train_batch)
+    from unidistill_torch.training.steps import model_inputs, voxelize_batch
+
+    fcfg = fusion_exp().model
+    full_batches = [to_device(train_batch(fcfg, fcfg, BATCH, seed=s), dev) for s in EXPORT_BATCH_SEEDS]
+    live = {}
+    for i, (name, exp, mode, seed, sweeps) in enumerate(cases):
+        if proc.poll() is not None:  # it failed: its log says why
+            break
+        cfg = exp().model
+        batches = []
+        for full, batch_seed in zip(full_batches, EXPORT_BATCH_SEEDS):
+            if sweeps > 1:
+                full = dict(to_device(nuscenes_batch(cfg, BATCH, seed=batch_seed, sweeps=sweeps), dev),
+                            gt_boxes=full["gt_boxes"])
+            b = {k: full[k] for k in _flatten_paths(_batch_spec(cfg, BATCH, "points", sweeps)) if "/" not in k}
+            if cfg.with_camera:
+                b["mats"] = full["mats"]
+            if mode == "host_voxels":
+                b = dict(voxelize_batch(full, cfg, dev, training=False), gt_boxes=full["gt_boxes"])
+            batches.append(b)
+        det = Detector(cfg, random_state_dict(cfg, seed=seed, sweeps=sweeps), device=dev)
+        calibrate_batchnorm(det.model, model_inputs(batches[0], cfg, dev, training=False))
+        if cfg.with_lidar:  # the stages' active sites of each batch
+            sites = []
+            for b in batches:
+                kw = model_inputs(b, cfg, dev, training=False)
+                rb = build_rulebooks(kw["voxel_feats"].float(), kw["voxel_coords"],
+                                     stage_shapes(cfg.lidar_encoder.grid_size))
+                sites.append([st.keys.numel() for st in rb.sites])
+            if any(a == b for a, b in zip(*sites)):
+                raise RuntimeError(f"[export {name}] the two batches share a stage's site count: {sites}")
+        else:
+            sites = None
+        # the live detector: ROIs, one request's launches, latency
+        recorders = ([Recorder(bev_pool, "bev_pool_cells_cuda"), Recorder(sparse_conv, "sparse_conv_cuda"),
+                      Recorder(nms, "rotated_iou_mask_cuda"), Recorder(nms, "nms_greedy_select_cuda")]
+                     if name in ("camera", "lidar") else [])
+        with contextlib.ExitStack() as stack:
+            for r in recorders:
+                stack.enter_context(r)
+            rois = [det.predict(batches[0])]
+        rois.append(det.predict(batches[1]))
+        for r in recorders:
+            if r.calls:
+                recorded.setdefault(r.name, [a for a, _ in r.calls])
+        torch.cuda.synchronize()
+        build.reset_launches()
+        det.predict(batches[0])
+        torch.cuda.synchronize()
+        live_launches = dict(build.LAUNCHES)
+        lat = []
+        for _ in range(EXPORT_LATENCY_CALLS):
+            t0 = time.perf_counter()
+            det.predict(batches[0])
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+        path = str(Path(tmp) / name.replace(" ", "_"))
+        t0 = time.perf_counter()
+        export_detector(cfg, det.model.state_dict(), path, batch_size=BATCH, input_mode=mode, device=dev)
+        export_s = time.perf_counter() - t0
+        live[name] = dict(rois=[{k: v.cpu().numpy() for k, v in r.items()} for r in rois],
+                          launches=live_launches, ms=statistics.median(lat) * 1e3, export_s=export_s,
+                          mb=os.path.getsize(Path(path) / "model.pt2") / 1e6, sites=sites)
+        job = Path(tmp) / f"job{i}.pkl"
+        with open(job.with_suffix(".tmp"), "wb") as f:
+            pickle.dump(dict(name=name, path=path, batches=[_numpy_tree(b) for b in batches]), f)
+        job.with_suffix(".tmp").rename(job)  # whole, for the loading process
+        del det, batches, rois
+        torch.cuda.empty_cache()
+    del full_batches
+    return live
+
+
+def check_exports(cases, live, loaded) -> None:
+    """Each loaded artifact against its live detector (`export_phases`):
+    masks and labels equal, boxes and scores within EXPORT_TOL_OF_MAX,
+    launches a request equal; prints each case's line."""
     for name, _, mode, _, sweeps in cases:
         got, ref = loaded[name], live[name]
         errs, bit_equal = {}, True
@@ -1899,9 +1994,6 @@ def export_phases(dev) -> dict:
             bit_equal=str(bit_equal).lower(), max_abs_err_boxes=f"{errs['boxes']:.3e}",
             max_abs_err_scores=f"{errs['scores']:.3e}", tol=f"masks and labels equal, "
             f"boxes and scores within {EXPORT_TOL_OF_MAX} of max(1, max|ref|)")
-    log("export", seconds=f"{time.time() - t_phase:.1f}", loading_process_s=f"{process_s:.1f}",
-        loading_process_modules="none of models/layers/training")
-    return recorded
 
 
 def host_us(fn, n=None):
@@ -2096,11 +2188,9 @@ def cli_phases(dev) -> None:
     """[cli distill lidar->camera]: the camera<-LiDAR launcher's CLI at full
     width on an on-disk synthetic nuScenes in a temporary directory: one
     epoch from a saved LiDAR teacher, a resume to the second epoch (with
-    validation), then the camera launcher's CLI with -e on the checkpoint.
-    Then [cli pipeline] on the same data root."""
+    validation, scored). Then [cli pipeline] on the same data root."""
     import tempfile
     from unidistill_torch.configs.nuscenes import camera_exp
-    from unidistill_torch.exps.base_cli import run_cli
     from unidistill_torch.exps.distill_cli import run_distill_cli
     from unidistill_torch.models.bevfusion import BEVFusionCenterHead
     from unidistill_torch.training import checkpoint as ckpt_lib
@@ -2159,21 +2249,15 @@ def cli_phases(dev) -> None:
             if len(val_recs) != 1 or "eval_error" in val_recs[0]:
                 raise RuntimeError(f"{phase}: validation records {val_recs}")
 
-            # ---- -e with the camera launcher's CLI ------------------------------------
-            tr3, _, _ = cli_run(f"{phase} evaluate", lambda argv: run_cli(camera_exp(), argv=argv),
-                                ["-e", "--ckpt_path", str(Path(tr2.output_dir) / "ckpt"), "-b", str(BATCH),
-                                 "--num_workers", str(CLI_WORKERS), "--data_root", root],
-                                dict(bev_pool_fwd=None, rotated_iou_mask=None, nms_greedy_select=None,
-                                     sparse_conv_fwd=0, bev_pool_bwd=0))
-            with open(Path(tr3.output_dir) / "nuscenes" / "metrics_summary.json") as f:
+            # the validation's scores (-e runs in [cli pipeline])
+            with open(Path(tr2.output_dir) / "nuscenes" / "metrics_summary.json") as f:
                 scores = json.load(f)
         numbers = dict(mAP=scores["mean_ap"], NDS=scores["nd_score"], **scores["tp_errors"])
         bad = [k for k, v in numbers.items() if not math.isfinite(v)]
         if bad or len(numbers) != 7:
             raise RuntimeError(f"{phase}: scores {numbers}")
-        log(f"{phase} scores", **{k: f"{v:.6g}" for k, v in numbers.items()},
-            val_mAP=f"{val_recs[0]['mean_ap']:.6g}")
-        del tr1, tr2, tr3
+        log(f"{phase} scores", **{k: f"{v:.6g}" for k, v in numbers.items()})
+        del tr1, tr2
         torch.cuda.empty_cache()
         log(phase, wall_seconds=f"{time.time() - t_phase:.2f}", smi=repr(nvidia_smi_line()))
         cli_pipeline_phase(tmp, root)
@@ -2289,6 +2373,146 @@ def cli_pipeline_phase(tmp: Path, root: str) -> None:
         gc.collect()
         torch.cuda.empty_cache()
     log(phase, wall_seconds=f"{time.time() - t_phase:.2f}", runs=8, smi=repr(nvidia_smi_line()))
+
+
+# ---- the convergence gate ---------------------------------------------------
+
+
+class StepLaunches:
+    """A gate's `on_step` hook: the launches of each step (the change of
+    the launch counts since the step before) must equal its stage's
+    CONVERGENCE_STEP_LAUNCHES exactly; `rest()` is what launched after the
+    last step (the evals)."""
+
+    def __init__(self):
+        from unidistill_torch.kernels import build
+        self.counts = build.LAUNCHES
+        self.seen = dict(self.counts)
+        self.steps, self.bad = {}, []
+
+    def _since(self):
+        now = dict(self.counts)
+        delta = {k: v - self.seen.get(k, 0) for k, v in now.items() if v != self.seen.get(k, 0)}
+        self.seen = now
+        return delta
+
+    def __call__(self, stage, i, metrics):
+        delta, want = self._since(), CONVERGENCE_STEP_LAUNCHES[stage]
+        self.steps[stage] = self.steps.get(stage, 0) + 1
+        if delta != want and len(self.bad) < 3:
+            self.bad.append(f"{stage} step {i} launched {delta}, expected {want}")
+
+    def rest(self):
+        return self._since()
+
+
+def convergence_jobs(seeds, full_width=True):
+    """[convergence]'s work, one list of (gate, seed) a process: one process
+    for each seed of G1 and of G2 in `seeds`, one for G3's seeds and G4
+    (seed None; with `full_width`) in turn."""
+    jobs = [[(gate, seed)] for gate in ("g1", "g2") for seed in seeds.get(gate, ())]
+    last = [("g3", seed) for seed in seeds.get("g3", ())] + ([("g4", None)] if full_width else [])
+    return jobs + ([last] if last else [])
+
+
+def g4_gate(dev, on_step):
+    """G4: the G3 gate on `distill_exp("lidar", "camera")` at full width,
+    batch CONVERGENCE_FULL_BATCH, scene frames on the full grid seen by the
+    main path's six-camera rig, from seeded student (0) and teacher (1)."""
+    from unidistill_torch.configs.nuscenes import distill_exp, lidar_exp
+    from unidistill_torch.experiments import convergence as cv
+    from unidistill_torch.serving.synthetic import nuscenes_batch
+    exp = distill_exp("lidar", "camera")
+    s_cfg, t_cfg = exp.model, lidar_exp().model
+    batch = cv.scene_batch(dataclasses.replace(s_cfg, with_lidar=True), CONVERGENCE_FULL_BATCH, seed=0)
+    # the scene batch's identity cameras look straight up: at full width no
+    # ray reaches a box and the feature term cannot move
+    batch["mats"] = nuscenes_batch(s_cfg, CONVERGENCE_FULL_BATCH, seed=0)["mats"]
+    student, teacher = cv.seeded_model(s_cfg, 0, dev), cv.seeded_model(t_cfg, 1, dev)
+    r = cv.distill_gate(student, teacher, s_cfg, t_cfg, exp.distill, batch, on_step=on_step)
+    r["failures"] = cv.distill_failures(r)
+    return r
+
+
+def convergence_rank(rank, jobs, device, dtype):
+    """One process of [convergence]: `jobs[rank]` in turn on `device`, each
+    with its launch counts set to 0 just before and its peak memory reset.
+    Returns a record a job: the gate's result, seconds, peak GiB, steps a
+    stage, launches, the evals' launches and what the launch checks found."""
+    sys.path.insert(0, str(ROOT))
+    from unidistill_torch.experiments import convergence as cv
+    from unidistill_torch.kernels import build
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    out = []
+    for gate, seed in jobs[rank]:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        check = StepLaunches()
+        t0 = time.time()
+        r = g4_gate(dev, check) if gate == "g4" else cv.run_gate(gate, seed, dev, dtype, on_step=check)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        evals = check.rest()
+        n_evals = CONVERGENCE_EVALS.get(gate, 0)
+        if evals.get("rotated_iou_mask", 0) != n_evals or evals.get("nms_greedy_select", 0) != n_evals:
+            check.bad.append(f"evals launched {evals}, expected K2 and K3 {n_evals} times each")
+        out.append(dict(gate=gate, seed=seed, result=r, seconds=seconds,
+                        peak_gib=torch.cuda.max_memory_allocated() / 2**30, steps=check.steps,
+                        launches=dict(sorted(build.LAUNCHES.items())), evals=evals, bad=check.bad))
+        torch.cuda.empty_cache()
+    return out
+
+
+def convergence_phase(dev, seeds=CONVERGENCE_SEEDS, dtype="bfloat16", full_width=True) -> None:
+    """[convergence]: the JAX package's convergence gate on the port
+    (`unidistill_torch.experiments.convergence`), from the port's own
+    seeded initial weights: G1 (the tiny LiDAR detector overfits two frames
+    of planted boxes), G2 (fusion -> LiDAR distillation against a plain
+    student on held-out scenes), G3 (camera <- LiDAR distill terms
+    decrease) at each seed of `seeds`, at the tiny configurations' compute
+    `dtype`, and G4 (`g4_gate`, with `full_width`). The gates' steps are
+    host-bound, so the gates run at once, each seed of G1 and G2 in a
+    process of its own on the one card (`convergence_jobs`,
+    `parallel.launch.run_ranks` with no group, one thread a process); each
+    gate's line is printed before anything is held: margins, seconds,
+    s/step, peak memory, launches (every step's exact,
+    CONVERGENCE_STEP_LAUNCHES; K2 and K3 once an eval). Over several seeds
+    a gate is held as `convergence.pooled` holds it: G1's hits and G2's
+    scores on their totals, all else for each seed. Raises when a gate
+    fails or a count differs."""
+    from unidistill_torch.experiments import convergence as cv
+    from unidistill_torch.parallel.launch import run_ranks
+
+    t_phase = time.time()
+    jobs = convergence_jobs(seeds, full_width)
+    records = [rec for got in run_ranks(convergence_rank, len(jobs), (jobs, str(dev), dtype),
+                                        ranks_per_card=len(jobs), timeout_s=CONVERGENCE_TIMEOUT_S, threads=1,
+                                        init_group=False)
+               for rec in got]
+    failures = []
+    for gate in list(seeds) + (["g4"] if full_width else []):
+        recs = [rec for rec in records if rec["gate"] == gate]
+        for rec in recs:
+            name = f"convergence {gate} " + (
+                f"batch={CONVERGENCE_FULL_BATCH}" if gate == "g4" else f"seed={rec['seed']}")
+            log(name, dtype=dtype, margins=json.dumps(cv.summary(gate, rec["result"])),
+                seconds=f"{rec['seconds']:.2f}", peak_mem_gib=f"{rec['peak_gib']:.3f}",
+                steps=json.dumps(rec["steps"]), launches=json.dumps(rec["launches"]),
+                eval_launches=json.dumps(rec["evals"]))
+            failures.extend(f"{name}: {b}" for b in rec["bad"])
+        if len(recs) == 1:
+            failures.extend(f"convergence {gate}: {f}" for f in recs[0]["result"]["failures"])
+        elif recs:
+            total = cv.pooled(gate, {rec["seed"]: rec["result"] for rec in recs})
+            log(f"convergence {gate} seeds", seeds=",".join(str(rec["seed"]) for rec in recs), dtype=dtype,
+                margins=json.dumps(cv.summary(gate, total)))
+            failures.extend(f"convergence {gate} seeds: {f}" for f in total["failures"])
+    log("convergence", seconds=f"{time.time() - t_phase:.1f}", processes=len(jobs), failed=len(failures))
+    if failures:
+        raise RuntimeError("convergence gate failed: " + "; ".join(failures))
 
 
 # ---- data parallelism -------------------------------------------------------
@@ -2443,27 +2667,72 @@ def ddp_rank(rank, batch_np, teacher_sd, out_dir, tiny):
                                      seconds=time.time() - t0))
 
 
-def ddp_phases(dev, batch_np, teacher_sd) -> None:
-    """[ddp distill lidar->camera] and [ddp tiny] over two gloo ranks on the
-    one card, then [ddp nccl]: world size 1 through `init_from_env`."""
-    import dataclasses
+def ranks_rank(rank, batch_np, teacher_sd, out_dir, tiny):
+    """One rank of the two-rank gloo world of [ddp *] and [spatial *]
+    (DDP_RANKS = SPATIAL_BEV), spawned once for both: `ddp_rank`, then
+    `spatial_rank`, each with an output directory of its own."""
+    dirs = [os.path.join(out_dir, name) for name in ("ddp", "spatial")]
+    for d in dirs:
+        os.makedirs(d, exist_ok=True)
+    ddp = ddp_rank(rank, batch_np, teacher_sd, dirs[0], tiny)
+    torch.cuda.empty_cache()
+    return dict(ddp=ddp, spatial=spatial_rank(rank, batch_np, teacher_sd, dirs[1], tiny))
+
+
+def ranks_phases(dev, batch_np, teacher_sd) -> None:
+    """[ddp distill lidar->camera], [ddp tiny], [spatial distill
+    lidar->camera] and [spatial tiny] in one spawned two-rank gloo world on
+    the one card (`ranks_rank`; the spatial step's one-process reference
+    first, in this process), then [ddp nccl]: world size 1 through
+    `init_from_env`."""
     import tempfile
-    from unidistill_torch.configs.nuscenes import camera_exp, distill_exp, tiny_model
+    from unidistill_torch.configs.nuscenes import DISTILL_VARIANTS, distill_exp, lidar_exp, tiny_model
+    from unidistill_torch.models.bevfusion import BEVFusionCenterHead
     from unidistill_torch.parallel.launch import run_ranks
     from unidistill_torch.serving.synthetic import random_state_dict, train_batch
+    from unidistill_torch.training.loop import init_params
+    from unidistill_torch.training.steps import distill_train_step, metrics_to_host
+    from unidistill_torch.training.train_state import TrainState, make_optimizer
+
+    assert DDP_RANKS == SPATIAL_BEV, "one world serves both"
+    t_phase = time.time()
+    # the spatial step's one-process reference, from the weights a Trainer starts from
+    pair = ("lidar", "camera")
+    exp = distill_exp(*pair)
+    student = init_params(BEVFusionCenterHead(exp.model), exp.train.seed).to(dev)
+    teacher = BEVFusionCenterHead(lidar_exp().model)
+    teacher.load_state_dict(teacher_sd)
+    teacher.to(dev).requires_grad_(False)
+    ref = metrics_to_host(distill_train_step(TrainState(), to_device(batch_np, dev), student, teacher,
+                                             make_optimizer(student, exp.train, 1), exp.model, lidar_exp().model,
+                                             DISTILL_VARIANTS[pair]))
+    del student, teacher
+    torch.cuda.empty_cache()
 
     s_tiny = dataclasses.replace(tiny_model(with_lidar=False), compute_dtype="float32")
     t_tiny = dataclasses.replace(tiny_model(with_camera=False), compute_dtype="float32")
     tiny = dict(s_cfg=s_tiny, t_cfg=t_tiny, s_sd=numpy_sd(random_state_dict(s_tiny, seed=2)),
                 t_sd=numpy_sd(random_state_dict(t_tiny, seed=12)), batch=train_batch(s_tiny, t_tiny, BATCH, seed=25),
-                train_cfg=distill_exp("lidar", "camera").train)
-    phase = "ddp distill lidar->camera"
-    t_phase = time.time()
+                train_cfg=exp.train)
     before = repo_files()
-    with tempfile.TemporaryDirectory(prefix="unidistill_ddp_") as tmp:
-        got = run_ranks(ddp_rank, DDP_RANKS, (batch_np, numpy_sd(teacher_sd), tmp, tiny),
+    t_world = time.time()
+    with tempfile.TemporaryDirectory(prefix="unidistill_ranks_") as tmp:
+        got = run_ranks(ranks_rank, DDP_RANKS, (batch_np, numpy_sd(teacher_sd), tmp, tiny),
                         ranks_per_card=DDP_RANKS, timeout_s=DDP_TIMEOUT_S)
-    wall = time.time() - t_phase
+    wall = time.time() - t_world
+    ddp_report([g["ddp"] for g in got], wall)
+    spatial_report([g["spatial"] for g in got], ref, wall)
+    ddp_nccl_phase(dev, tiny)
+    written = sorted(set(repo_files().items()) - set(before.items()))
+    if written:
+        raise RuntimeError(f"[ddp], [spatial]: files written under the repository: {written[:10]}")
+    log("ddp spatial", wall_seconds=f"{time.time() - t_phase:.2f}", world_wall_seconds=f"{wall:.2f}")
+
+
+def ddp_report(got, wall) -> None:
+    """[ddp distill lidar->camera] and [ddp tiny]: the checks and lines of
+    the ranks' `ddp_rank` results; `wall` is the world's seconds."""
+    phase = "ddp distill lidar->camera"
     want = dict(bev_pool_fwd=1, bev_pool_bwd=1, sparse_conv_fwd=SPARSE_CONVS_PER_REQUEST)
     full = [g["full"] for g in got]
     for r, f in enumerate(full):
@@ -2493,7 +2762,7 @@ def ddp_phases(dev, batch_np, teacher_sd) -> None:
         params_bit_equal_after_each_step="true", loss_vs_mean_of_rank_totals=f"{loss_err:.2e}",
         **{k: f"{v:.6g}" for k, v in sorted(terms.items())})
     log(phase, rank_totals=[[round(t, 4) for t in tt] for tt in full[0]["totals"]],
-        rank_seconds=[round(f["seconds"], 2) for f in full], wall_seconds=f"{wall:.2f}",
+        rank_seconds=[round(f["seconds"], 2) for f in full], world_wall_seconds=f"{wall:.2f}",
         smi=repr(nvidia_smi_line()))
 
     # ---- [ddp tiny]: the two-rank step on the card against the CPU ------------
@@ -2506,13 +2775,6 @@ def ddp_phases(dev, batch_np, teacher_sd) -> None:
     if (worst[0] > TRAIN_TINY_LOSS_RTOL or worst[1] > TRAIN_TINY_GRAD_TOL or worst[2] > 1e-2
             or worst[3] > 2.0):
         raise RuntimeError(f"ddp tiny: card vs CPU {worst} beyond the tolerances")
-
-    # ---- [ddp nccl]: world size 1 through init_from_env -------------------------
-    ddp_nccl_phase(dev, tiny)
-    written = sorted(set(repo_files().items()) - set(before.items()))
-    if written:
-        raise RuntimeError(f"{phase}: files written under the repository: {written[:10]}")
-    log("ddp", wall_seconds=f"{time.time() - t_phase:.2f}")
 
 
 def spatial_rank(rank, batch_np, teacher_sd, out_dir, tiny):
@@ -2603,46 +2865,11 @@ def spatial_rank(rank, batch_np, teacher_sd, out_dir, tiny):
                                      seconds=time.time() - t0))
 
 
-def spatial_phases(dev, batch_np, teacher_sd) -> None:
-    """[spatial distill lidar->camera] and [spatial tiny]: the camera<-LiDAR
-    step through the Trainer's spatial path (`train.spatial_bev` =
-    SPATIAL_BEV) on SPATIAL_BEV gloo ranks of the one card, against the
-    one-process step on the same batch and weights."""
-    import dataclasses
-    import tempfile
-    from unidistill_torch.configs.nuscenes import DISTILL_VARIANTS, distill_exp, lidar_exp, tiny_model
-    from unidistill_torch.models.bevfusion import BEVFusionCenterHead
-    from unidistill_torch.parallel.launch import run_ranks
-    from unidistill_torch.serving.synthetic import random_state_dict, train_batch
-    from unidistill_torch.training.loop import init_params
-    from unidistill_torch.training.steps import distill_train_step, metrics_to_host
-    from unidistill_torch.training.train_state import TrainState, make_optimizer
-
+def spatial_report(got, ref, wall) -> None:
+    """[spatial distill lidar->camera] and [spatial tiny]: the checks and
+    lines of the ranks' `spatial_rank` results against the one-process
+    step's metrics `ref`; `wall` is the world's seconds."""
     phase = "spatial distill lidar->camera"
-    t_phase = time.time()
-    # the one-process step from the weights a Trainer starts from
-    pair = ("lidar", "camera")
-    exp = distill_exp(*pair)
-    student = init_params(BEVFusionCenterHead(exp.model), exp.train.seed).to(dev)
-    teacher = BEVFusionCenterHead(lidar_exp().model)
-    teacher.load_state_dict(teacher_sd)
-    teacher.to(dev).requires_grad_(False)
-    ref = metrics_to_host(distill_train_step(TrainState(), to_device(batch_np, dev), student, teacher,
-                                             make_optimizer(student, exp.train, 1), exp.model, lidar_exp().model,
-                                             DISTILL_VARIANTS[pair]))
-    del student, teacher
-    torch.cuda.empty_cache()
-
-    s_tiny = dataclasses.replace(tiny_model(with_lidar=False), compute_dtype="float32")
-    t_tiny = dataclasses.replace(tiny_model(with_camera=False), compute_dtype="float32")
-    tiny = dict(s_cfg=s_tiny, t_cfg=t_tiny, s_sd=numpy_sd(random_state_dict(s_tiny, seed=2)),
-                t_sd=numpy_sd(random_state_dict(t_tiny, seed=12)), batch=train_batch(s_tiny, t_tiny, BATCH, seed=25),
-                train_cfg=exp.train)
-    before = repo_files()
-    with tempfile.TemporaryDirectory(prefix="unidistill_spatial_") as tmp:
-        got = run_ranks(spatial_rank, SPATIAL_BEV, (batch_np, numpy_sd(teacher_sd), tmp, tiny),
-                        ranks_per_card=SPATIAL_BEV, timeout_s=DDP_TIMEOUT_S)
-    wall = time.time() - t_phase
     want = dict(bev_pool_fwd=1, bev_pool_bwd=1, sparse_conv_fwd=SPARSE_CONVS_PER_REQUEST)
     full = [g["full"] for g in got]
     for r, f in enumerate(full):
@@ -2672,7 +2899,7 @@ def spatial_phases(dev, batch_np, teacher_sd) -> None:
         params_bit_equal_after_each_step="true", first_loss=f"{full[0]['first']['loss']:.6g}",
         one_process_loss=f"{ref['loss']:.6g}", first_loss_rel_err=f"{loss_err:.3e}",
         tol=SPATIAL_LOSS_RTOL_BF16, **{k: f"{v:.6g}" for k, v in sorted(terms.items())})
-    log(phase, rank_seconds=[round(f["seconds"], 2) for f in full], wall_seconds=f"{wall:.2f}",
+    log(phase, rank_seconds=[round(f["seconds"], 2) for f in full], world_wall_seconds=f"{wall:.2f}",
         collectives_per_step_per_rank=json.dumps([{k: int(n) for k, (n, _) in f["collectives"].items()}
                                                   for f in full], sort_keys=True),
         collective_host_s_per_step_per_rank=json.dumps(
@@ -2688,9 +2915,6 @@ def spatial_phases(dev, batch_np, teacher_sd) -> None:
     if (worst[0] > TRAIN_TINY_LOSS_RTOL or worst[1] > TRAIN_TINY_GRAD_TOL or worst[2] > 1e-2
             or worst[3] > 2.0):
         raise RuntimeError(f"spatial tiny: card vs CPU {worst} beyond the tolerances")
-    written = sorted(set(repo_files().items()) - set(before.items()))
-    if written:
-        raise RuntimeError(f"{phase}: files written under the repository: {written[:10]}")
 
 
 def native_phase() -> None:
@@ -3100,33 +3324,30 @@ def main() -> int:
         build.library(name)
     log("build", seconds=f"{build_s:.2f}", built=",".join(sorted(logs)) or "cached")
 
+    def timed(name, fn, *args):
+        """Runs one group of phases, frees the cached blocks after it, and
+        prints its wall seconds."""
+        t0 = time.time()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        log("timing", phases=name, seconds=f"{time.time() - t0:.1f}")
+        return out
+
     table = []
-    camera_phases(dev, table)
-    torch.cuda.empty_cache()
-    lidar_phases(dev, table)
-    torch.cuda.empty_cache()
-    distill_inputs = train_phases(dev, table)
-    torch.cuda.empty_cache()
-    lidar_train_phases(dev, table)
-    torch.cuda.empty_cache()
-    swin_multisweep_phases(dev, distill_inputs[0])
-    torch.cuda.empty_cache()
-    components_phase(dev)
-    torch.cuda.empty_cache()
-    fusion_phases(dev)
-    torch.cuda.empty_cache()
-    launch_path_phase(export_phases(dev))
-    torch.cuda.empty_cache()
-    flops_phase(dev, *distill_inputs)
-    torch.cuda.empty_cache()
-    native_phase()
-    cli_phases(dev)
-    torch.cuda.empty_cache()
-    ddp_phases(dev, *distill_inputs)
-    torch.cuda.empty_cache()
-    spatial_phases(dev, *distill_inputs)
-    torch.cuda.empty_cache()
-    microbench_phases(dev, table)
+    timed("camera", camera_phases, dev, table)
+    timed("lidar", lidar_phases, dev, table)
+    distill_inputs = timed("train", train_phases, dev, table)
+    timed("lidar train", lidar_train_phases, dev, table)
+    timed("swin multisweep", swin_multisweep_phases, dev, distill_inputs[0])
+    timed("components", components_phase, dev)
+    timed("fusion", fusion_phases, dev)
+    timed("export launch path", lambda: launch_path_phase(export_phases(dev)))
+    timed("flops", flops_phase, dev, *distill_inputs)
+    timed("native", native_phase)
+    timed("cli", cli_phases, dev)
+    timed("convergence", convergence_phase, dev)
+    timed("ddp spatial", ranks_phases, dev, *distill_inputs)
+    timed("microbench", microbench_phases, dev, table)
 
     log("done", seconds=f"{time.time() - t_start:.1f}")
     print(json.dumps({"kernels": table}))
@@ -3138,5 +3359,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["load-artifacts"]:  # the export phases' loading process
-        sys.exit(load_artifacts(*sys.argv[2:4]))
+        sys.exit(load_artifacts(*sys.argv[2:5]))
     sys.exit(main())

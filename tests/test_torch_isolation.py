@@ -40,7 +40,7 @@ def test_importing_the_port_pulls_in_no_jax():
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 71, res.stdout  # the training, data, CLI, microbenchmark and leaf modules included
+    assert n_modules >= 72, res.stdout  # the training, data, CLI, microbenchmark, leaf and gate modules included
 
 
 def test_the_loader_touches_only_the_ports_own_files(tmp_path):
@@ -84,6 +84,38 @@ def test_the_loader_touches_only_the_ports_own_files(tmp_path):
     assert any(p.startswith(str(ROOT / "unidistill_torch" / "csrc" / "host")) for p in out["opened"])
     ours = [p for p in out["loaded"] if p.startswith(str(ROOT) + os.sep)]
     assert ours == [out["host"]]
+
+
+def test_the_convergence_gate_touches_only_the_ports_own_files():
+    """A fresh process imports `experiments.convergence` alone, makes the
+    gate's batches (the host library's voxeliser) and scores fixed
+    decodes, under an audit hook: no JAX module is imported and no file
+    under `unidistill_tpu/` or `runtime/`, nor the JAX gate's
+    `tests/test_convergence.py`, is opened."""
+    code = (
+        "import sys\n"
+        "opened = []\n"
+        "sys.addaudithook(lambda e, a: opened.append(str(a[0])) if e == 'open' and isinstance(a[0], (str, bytes)) else None)\n"
+        "import json, os\n"
+        "import numpy as np\n"
+        "from unidistill_torch.configs.nuscenes import tiny_model\n"
+        "from unidistill_torch.experiments import convergence as cv\n"
+        "b = cv.concat_batches(cv.scene_batch(tiny_model(), 1, 0, scene=cv.SCENE2), cv.scene_batch(tiny_model(), 1, 1))\n"
+        "res = dict(boxes=np.zeros((2, 4, 9), np.float32), scores=np.zeros((2, 4), np.float32),\n"
+        "           labels=np.ones((2, 4), np.int32))\n"
+        "hits = cv.box_hits(res, [cv.SCENE2, cv.SCENE2B])\n"
+        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(json.dumps(dict(opened=[os.path.realpath(p) for p in opened], bad=bad, hits=hits,\n"
+        "                      shape=list(b['voxel_coords'].shape), cams=list(b['imgs'].shape))))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["bad"] == [] and out["hits"] == [0, 0]
+    assert out["shape"] == [2, 2048, 3] and out["cams"][:2] == [2, 2]
+    jax_files = (str(ROOT / "unidistill_tpu") + os.sep, str(ROOT / "runtime") + os.sep,
+                 str(ROOT / "tests" / "test_convergence.py"))
+    assert not [p for p in out["opened"] if p.startswith(jax_files)]
 
 
 def _sources():
