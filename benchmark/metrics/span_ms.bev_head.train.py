@@ -1,0 +1,7 @@
+"""The student's BEV backbone and CenterHead forward: milliseconds a step in the `bev_head` span of
+the spans' slice (CUDA events from the benchmark's hooks)."""
+
+
+def read(record):
+    ms = record["spans_ms"].get("bev_head")
+    return ms / record["span_iterations"] if ms and record["span_iterations"] else None

@@ -1,0 +1,7 @@
+"""The camera encoder (ResNet-50, SECONDFPN, depth net, geometry, BEV pool): milliseconds a request in the `camera_encoder` span of
+the spans' slice (CUDA events from the benchmark's hooks)."""
+
+
+def read(record):
+    ms = record["spans_ms"].get("camera_encoder")
+    return ms / record["span_iterations"] if ms and record["span_iterations"] else None
